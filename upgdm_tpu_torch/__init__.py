@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of ``upgdm_tpu`` for NVIDIA Hopper (H100).
+
+The package mirrors the JAX package module for module (``utils``, ``ops``,
+``models``, ``eval``); the TPU's Pallas kernels become hand-written CUDA
+kernels under ``csrc/`` with their Python wrappers in ``ops/kernels/``.
+
+Importing the package pulls in ``torch``, ``numpy`` and ``yaml`` only — never
+``jax``, ``flax``, ``optax`` or anything of ``upgdm_tpu``.
+
+Entry points (``NsDiffModel``, ``fast_mpv_sweep``, ``load_model_from_dir``)
+run on ``"cuda"`` unless the caller passes ``device="cpu"``; with no card and
+no explicit CPU device they raise.
+"""

@@ -1,0 +1,113 @@
+"""Shared wrapper plumbing of the port's diffusion models.
+
+Counterpart of ``upgdm_tpu/models/base.py``. A wrapper holds its torch
+modules in one ``nn.ModuleDict`` (``self.net``) whose top-level names are the
+JAX package's param-tree roots (``cond_pred_model``, ``cond_pred_model_g``,
+``model``), and keeps the reference's stateful surface: scalers,
+``state_dict``/``load_state_dict`` over the flax-named flat dict, and the
+sampling dtype knobs.
+
+RNG: an explicit ``torch.Generator`` on the model's device, seeded from
+``seed``, replaces the JAX package's fold-in key counter.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..utils.device import resolve_device
+from ..utils.scalers import StandardScaler
+from ..utils.weights import SCALER_KEYS, flax_flat_from_torch, torch_state_from_flax
+
+EPS = 10e-8  # 1e-7, the reference's epsilon
+
+__all__ = ["EPS", "DiffusionWrapperBase"]
+
+
+class DiffusionWrapperBase:
+    scaler_axis = 0  # flat series
+
+    _SAMPLING_DTYPES = {
+        "float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+    }
+
+    def __init__(self, net_param: dict, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        # float32 means float32 on the card too: matmuls and the cuDNN
+        # convolutions of DataEmbedding/Projector would otherwise run in TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.net_param = dict(net_param)
+        self.dataset_nf = net_param["dataset_nf"]
+        self.windows = net_param["windows"]
+        self.pred_len = net_param["pred_len"]
+        self.scaler = net_param.get("scaler_type")
+        if self.scaler in (None, "None"):
+            self.scaler = None
+        self._scaler = StandardScaler(
+            mean=np.zeros(self.dataset_nf, np.float32),
+            std=np.ones(self.dataset_nf, np.float32),
+        )
+        self.seed = seed
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.net = nn.ModuleDict()
+
+    # -- scaler (reference semantics: NsDiff_model.py:99-110) --------------
+    def scaler_fit(self, data):
+        self._scaler.fit(np.asarray(data), axis=self.scaler_axis)
+
+    def scaler_transform(self, data):
+        return self._scaler.transform(data)
+
+    def scaler_inverse_transform(self, data):
+        return self._scaler.inverse_transform(data)
+
+    @property
+    def scaler_mean(self):
+        return self._scaler.mean
+
+    @property
+    def scaler_std(self):
+        return self._scaler.std
+
+    # -- checkpoint surface: the flax-named flat dict -----------------------
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        flat = flax_flat_from_torch(self.net.state_dict())
+        flat["scaler_mean"] = np.asarray(self._scaler.mean, np.float32)
+        flat["scaler_std"] = np.asarray(self._scaler.std, np.float32)
+        return flat
+
+    def load_state_dict(self, flat: Dict[str, np.ndarray], strict: bool = True):
+        flat = dict(flat)
+        if "scaler_mean" in flat:
+            self._scaler.mean = np.asarray(flat["scaler_mean"], np.float32)
+        if "scaler_std" in flat:
+            self._scaler.std = np.asarray(flat["scaler_std"], np.float32)
+        for k in SCALER_KEYS:
+            flat.pop(k, None)
+        self.net.load_state_dict(torch_state_from_flax(flat), strict=strict)
+        self._on_weights_changed()
+
+    def _on_weights_changed(self):
+        """Hook for wrappers that cache derived copies of their weights."""
+
+    # -- helpers ------------------------------------------------------------
+    def dtype_param(self, name: str, default: str) -> torch.dtype:
+        """Validated net_param[name] -> torch dtype (a typo raises)."""
+        s = str(self.net_param.get(name, default))
+        try:
+            return self._SAMPLING_DTYPES[s]
+        except KeyError:
+            raise ValueError(
+                f"{name}={s!r}: expected one of {sorted(self._SAMPLING_DTYPES)}"
+            ) from None
+
+    def sampling_dtype(self, default: str = "bfloat16") -> torch.dtype:
+        return self.dtype_param("sampling_dtype", default)
+
+    def as_batch(self, batch) -> torch.Tensor:
+        """A batch (numpy or tensor) as float32 on the model's device."""
+        return torch.as_tensor(batch, dtype=torch.float32, device=self.device)

@@ -1,0 +1,213 @@
+"""K2 — the whole NsDiff reverse chain in one launch (wrapper of
+``csrc/chain_resident.cu``).
+
+Counterpart of ``upgdm_tpu/ops/pallas/chain_resident.py``. For M rows of
+(y0_hat, gx) the chain starts from y_T = sqrt(gx) * z + y0_hat, runs the K1
+trunk and the heteroscedastic posterior update for t = T-1 .. 1, and ends
+with the deterministic reparameterisation at t = 0 — the arithmetic of
+``ops/diffusion.py::nsdiff_p_sample_loop`` with the trunk's first-layer
+[y0_hat, gx] partial product hoisted out of the loop.
+
+The kernel draws its noise from Philox4x32-10 keyed by (seed, row, step);
+the plain twin ``fused_chain_rows_reference`` draws from a
+``torch.Generator``. The two streams differ, so sampled chains agree in
+distribution (ensemble MPV), and ``noise_mode="zero"`` makes both
+deterministic for exact comparisons.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .fused_denoiser import (
+    HIDDEN,
+    MAX_F,
+    _EPS_NORM_SQ,
+    _check_mat,
+    _check_vec,
+    _dot,
+    check_dtypes,
+    denoiser_weights,
+    kernel_weights,
+)
+
+__all__ = [
+    "schedule_table",
+    "fused_chain_rows",
+    "fused_chain_rows_reference",
+    "fused_nsdiff_chain",
+    "MAX_T",
+]
+
+MAX_T = 1024  # csrc/chain_resident.cu::MAX_T
+_NOISE = ("prng", "zero")
+
+
+def schedule_table(sched) -> np.ndarray:
+    """[7, T] float32 row-stack of the per-step schedule arrays."""
+    rows = [sched.alphas, sched.betas_tilde, sched.betas_bar,
+            sched.betas_tilde_m_1, sched.betas_bar_m_1,
+            sched.alphas_cumprod_prev, sched.one_minus_alphas_bar_sqrt]
+    return np.ascontiguousarray(np.stack([np.asarray(r, np.float32) for r in rows], axis=0))
+
+
+def _sigma_y0_hat(a, bt_m1, bb_m1, gx, sigma_theta):
+    """Per-step quadratic solve for sigma_Y0 (nsdiff_utils.py:143-146)."""
+    lam0 = a * (1.0 - a) * bt_m1
+    lam1 = ((1.0 - a) ** 2 * bt_m1 + a * (1.0 - a) * (bb_m1 - bt_m1)) * gx \
+        - sigma_theta * (a * bt_m1 + a * (1.0 - a))
+    lam2 = gx * gx * (1.0 - a) ** 2 * (bb_m1 - bt_m1) - sigma_theta * gx * (
+        a * bb_m1 - a * bt_m1 + (1.0 - a) ** 2
+    )
+    disc = torch.clamp(lam1 * lam1 - 4.0 * lam0 * lam2, min=0.0)
+    return (-lam1 + torch.sqrt(disc)) / (2.0 * lam0)
+
+
+def fused_chain_rows_reference(y0h, gx, tab, gammas_tables, weights, n_steps,
+                               matmul_dtype="bfloat16", act_dtype="float32",
+                               noise_mode="prng", use_gx_directly=False,
+                               generator=None):
+    """Plain PyTorch twin of K2: y0h/gx [M, F] -> y_0 [M, F].
+
+    tab: [7, T] schedule table (tensor on the rows' device); gammas_tables:
+    (E1, E2, E3) [T, HIDDEN]; weights as ``denoiser_weights``. Noise is
+    drawn from ``generator`` with ``torch.randn`` when noise_mode="prng".
+    """
+    mm = check_dtypes(matmul_dtype, act_dtype)
+    if noise_mode not in _NOISE:
+        raise ValueError(f"noise_mode={noise_mode!r}: expected one of {_NOISE}")
+    W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = weights
+    E1, E2, E3 = gammas_tables
+    Fdim = y0h.shape[-1]
+    w1y = W1[:Fdim]
+    base1 = _dot(y0h, W1[Fdim:2 * Fdim], mm) + _dot(gx, W1[2 * Fdim:3 * Fdim], mm)
+
+    def band(out, g, b):
+        out = F.softplus(g * (out + b))
+        s2 = (out * out).sum(dim=-1, keepdim=True)
+        return out * torch.rsqrt(torch.clamp(s2, min=_EPS_NORM_SQ))
+
+    def trunk(y, t):
+        h = band(_dot(y, w1y, mm) + base1, E1[t], b1)
+        h = band(_dot(h, W2, mm), E2[t], b2)
+        h = band(_dot(h, W3, mm), E3[t], b3)
+        eps = _dot(h, W4, mm) + b4
+        sigma = F.softplus(_dot(F.softplus(h), Ws, mm) + bs)
+        return eps, sigma
+
+    def normal(like):
+        return torch.randn(like.shape, generator=generator, device=like.device,
+                           dtype=torch.float32)
+
+    def noise_var(t, sigma_theta):
+        a, bt, bb, bt_m1, bb_m1 = (tab[k, t] for k in range(5))
+        if use_gx_directly:
+            return gx, bb * gx
+        s_y0 = _sigma_y0_hat(a, bt_m1, bb_m1, gx, sigma_theta)
+        return s_y0, (bb - bt) * gx + bt * s_y0
+
+    y = torch.sqrt(gx) * normal(y0h) + y0h if noise_mode == "prng" else y0h
+    for t in range(n_steps - 1, -1, -1):
+        eps_theta, sigma_theta = trunk(y, t)
+        sqrt_abar = torch.sqrt(1.0 - tab[6, t] * tab[6, t])
+        s_y0, nvar = noise_var(t, sigma_theta)
+        y0_reparam = (y - (1.0 - sqrt_abar) * y0h - eps_theta * torch.sqrt(nvar)) / sqrt_abar
+        if t == 0:
+            return y0_reparam  # deterministic last step (p_sample_t_1to0)
+        a, bt_m1, bb_m1, acp_prev = tab[0, t], tab[3, t], tab[4, t], tab[5, t]
+        s1 = (1.0 - a) ** 2 * gx + a * (1.0 - a) * s_y0
+        s2 = (bb_m1 - bt_m1) * gx + bt_m1 * s_y0
+        denom = a * s2 + s1
+        sqrt_a = torch.sqrt(a)
+        sqrt_abar_prev = torch.sqrt(acp_prev)
+        g0 = sqrt_abar_prev * s1 / denom
+        g1 = sqrt_a * s2 / denom
+        g2 = ((sqrt_a * (a - 1.0)) * s2 + (1.0 - sqrt_abar_prev) * s1) / denom
+        y = g0 * y0_reparam + g1 * y + g2 * y0h
+        if noise_mode == "prng":
+            y = y + torch.sqrt(sigma_theta) * normal(y)
+    raise ValueError("n_steps must be >= 1")
+
+
+def fused_chain_rows(y0h, gx, tab, seed, gammas_tables, weights, n_steps,
+                     matmul_dtype="bfloat16", act_dtype="float32", noise_mode="prng",
+                     use_gx_directly=False):
+    """y0h/gx: [M, F] rows -> y_0 [M, F] after the full reverse chain.
+
+    CUDA tensors launch K2 (Philox noise keyed by ``seed``); CPU tensors run
+    the plain twin with a ``torch.Generator`` seeded by ``seed``.
+    """
+    if y0h.device.type == "cpu":
+        gen = torch.Generator().manual_seed(int(seed))
+        return fused_chain_rows_reference(
+            y0h.float(), gx.float(), torch.as_tensor(tab, dtype=torch.float32),
+            gammas_tables, weights, n_steps, matmul_dtype, act_dtype, noise_mode,
+            use_gx_directly, generator=gen,
+        )
+    if y0h.device.type != "cuda":
+        raise ValueError(f"fused_chain_rows: unsupported device {y0h.device}")
+    mm = check_dtypes(matmul_dtype, act_dtype)
+    if noise_mode not in _NOISE:
+        raise ValueError(f"noise_mode={noise_mode!r}: expected one of {_NOISE}")
+    dev = y0h.device
+    for name, t in (("y0h", y0h), ("gx", gx)):
+        if t.device != dev or t.dtype != torch.float32 or t.ndim != 2 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous float32 [M, F] on {dev}")
+    if gx.shape != y0h.shape:
+        raise ValueError(f"gx {tuple(gx.shape)} and y0h {tuple(y0h.shape)} differ")
+    M, Fdim = y0h.shape
+    if not 1 <= Fdim <= MAX_F or not 1 <= n_steps <= MAX_T:
+        raise ValueError(f"F={Fdim} (max {MAX_F}) or T={n_steps} (max {MAX_T}) out of range")
+    tab = torch.as_tensor(tab, dtype=torch.float32, device=dev).contiguous()
+    _check_mat("tab", tab, (7, n_steps), torch.float32, dev)
+    E1, E2, E3 = (e.float().contiguous() for e in gammas_tables)
+    for name, e in (("E1", E1), ("E2", E2), ("E3", E3)):
+        _check_mat(name, e, (n_steps, HIDDEN), torch.float32, dev)
+    W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = kernel_weights(weights, mm)
+    for name, b in (("b1", b1), ("b2", b2), ("b3", b3)):
+        _check_vec(name, b, HIDDEN, dev)
+    _check_vec("b4", b4, Fdim, dev)
+    _check_vec("bs", bs, Fdim, dev)
+    _check_mat("W1", W1, (3 * Fdim, HIDDEN), mm, dev)
+    _check_mat("W2", W2, (HIDDEN, HIDDEN), mm, dev)
+    _check_mat("W3", W3, (HIDDEN, HIDDEN), mm, dev)
+    _check_mat("W4", W4, (HIDDEN, Fdim), mm, dev)
+    _check_mat("Ws", Ws, (HIDDEN, Fdim), mm, dev)
+    out = torch.empty((M, Fdim), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: t.data_ptr()
+    code = lib.upgdm_chain_resident(
+        ptr(y0h), ptr(gx), M, Fdim, n_steps, ptr(tab), int(seed) & (2**64 - 1),
+        int(noise_mode == "prng"), int(bool(use_gx_directly)), ptr(E1), ptr(E2), ptr(E3),
+        ptr(W1), ptr(b1), ptr(W2), ptr(b2), ptr(W3), ptr(b3), ptr(W4), ptr(b4), ptr(Ws),
+        ptr(bs), ptr(out), int(mm == torch.bfloat16), stream,
+    )
+    _build.check(code, "chain_resident")
+    fused_chain_rows.launches += 1
+    return out
+
+
+fused_chain_rows.launches = 0
+
+
+def fused_nsdiff_chain(denoiser, y0_hat, gx, sched, seed, n_z_samples: int,
+                       matmul_dtype="bfloat16", act_dtype="float32",
+                       noise_mode="prng", use_gx_directly=False):
+    """Chain-resident ensemble sampler: [B, O, N] y0_hat/gx -> samples
+    [B, O, N, S] (the JAX package's ``fused_nsdiff_chain`` signature, with
+    the denoiser module in place of its flax params)."""
+    B, O, N = y0_hat.shape
+    S = n_z_samples
+    y0_rows = y0_hat.float()[None].expand(S, B, O, N).reshape(-1, N).contiguous()
+    gx_rows = gx.float()[None].expand(S, B, O, N).reshape(-1, N).contiguous()
+    d = denoiser
+    tables = tuple(e.detach() for e in (d.lin1.embed, d.lin2.embed, d.lin3.embed))
+    out = fused_chain_rows(
+        y0_rows, gx_rows, schedule_table(sched), seed, tables, denoiser_weights(d),
+        sched.num_timesteps, matmul_dtype=matmul_dtype, act_dtype=act_dtype,
+        noise_mode=noise_mode, use_gx_directly=use_gx_directly,
+    )
+    return out.reshape(S, B, O, N).permute(1, 2, 3, 0)
