@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``upgdm_tpu_torch/csrc/`` (into
+Builds the port's three CUDA kernels from ``upgdm_tpu_torch/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch twin on the
 card, drives the NsDiff sampling-MPV sweep at the bench geometry
 (``bench.py``: Node 30, W/P 100/100, 20 steps, 100 samples, d_model 512,
-e4/d2) through the port's entry points, and checks the trained SIS model of
-``demo_fig1``. Every phase that fails exits non-zero. Progress goes to
+e4/d2) and the TMDM sampling-MPV sweep at the model-comparison geometry
+(Node 30, W/P 100/100, label 50, 100 steps, 100 samples, d_model 64, e2/d1)
+through the port's entry points, runs the cache-first evaluation runner, and
+checks the trained SIS model of ``demo_fig1``. Every phase that fails exits
+non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -18,6 +21,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -34,6 +38,17 @@ NET_PARAM = dict(
     beta_start=1e-4, beta_end=2e-2, activation="gelu",
 )
 M_MAIN = N_Z * CHUNK * NODE * PRED_LEN  # rows per denoiser call on the main path: 4.8 M
+
+# TMDM geometry (benchmarks/ab_tmdm.py:48-53 and the demo_zoo TMDM yaml)
+T_STEPS, T_LABEL, T_WINDOWS, T_CHUNK = 100, 50, 16, 8
+TMDM_PARAM = dict(
+    dataset_nf=1, windows=WINDOWS, pred_len=PRED_LEN, label_len=T_LABEL,
+    diffusion_steps=T_STEPS, scaler_type="StandardScaler", d_model=64, n_heads=4,
+    e_layers=2, d_layers=1, d_ff=128, p_hidden_dims=[64, 64], p_hidden_layers=2,
+    n_z_samples=N_Z, task_model="TMDM", beta_schedule="linear", beta_start=1e-4,
+    beta_end=2e-2, activation="gelu",
+)
+M_TMDM = N_Z * T_CHUNK * NODE * (T_LABEL + PRED_LEN)  # rows per K3 call: 3.6 M
 
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -113,6 +128,10 @@ def k2_flops(M, T, F=1, H=128):
     return 2.0 * M * (2 * F * H + T * (F * H + 2 * H * H + 2 * H * F))
 
 
+def k3_flops(M, F=1, H=128):
+    return 2.0 * M * (2 * F * H + 2 * H * H + H * F)
+
+
 def main():
     import torch
 
@@ -125,10 +144,12 @@ def main():
     sys.path.insert(0, str(REPO))
     import numpy as np
 
+    from upgdm_tpu_torch import diffusion_models
     from upgdm_tpu_torch.eval.uncertainty import (
         fast_mpv_sweep, load_dynamic_data, load_model_from_dir, mpv_reduce,
+        run_evaluation_cache,
     )
-    from upgdm_tpu_torch.models.denoise import NsDiffDenoiser
+    from upgdm_tpu_torch.models.denoise import NsDiffDenoiser, TMDMDenoiser
     from upgdm_tpu_torch.models.nsdiff import NsDiffModel
     from upgdm_tpu_torch.ops.kernels import _build
     from upgdm_tpu_torch.ops.kernels.chain_resident import (
@@ -138,7 +159,11 @@ def main():
         denoiser_gammas, denoiser_weights, fused_denoiser_rows,
         fused_denoiser_rows_reference, kernel_weights,
     )
+    from upgdm_tpu_torch.ops.kernels.fused_tmdm import (
+        fused_tmdm_rows, fused_tmdm_rows_reference, tmdm_gammas, tmdm_weights,
+    )
     from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
+    from upgdm_tpu_torch.utils.io import load_tensor_list
     from upgdm_tpu_torch.ops.windows import sample_time_series, sliding_windows
     from upgdm_tpu_torch.utils.io import read_model_config
 
@@ -260,14 +285,56 @@ def main():
          bound_ms={k: v[0] for k, v in k2_bound.items()},
          bound_by={k: v[1] for k, v in k2_bound.items()})
 
-    # -- 5. the main path at full width ------------------------------------------
+    # -- 5. K3 against its plain twin ------------------------------------------
+    k3_err = {"float32": 0.0, "bfloat16": 0.0}
+    k3_tol = k1_tol  # the same two bars, for the reason given at K1
+    with torch.no_grad():
+        for Fdim in (1, 2):
+            tden = TMDMDenoiser(Fdim, T_STEPS + 1).to(dev).eval()
+            TW = tmdm_weights(tden)
+            for M in (65536, 65537):
+                x = torch.randn(M, 2 * Fdim, generator=gen, device=dev)
+                for t in (0, 50, 100):
+                    g = tmdm_gammas(tden, t)
+                    for mm in ("float32", "bfloat16"):
+                        e = fused_tmdm_rows(x, g, TW, matmul_dtype=mm)
+                        e_r = fused_tmdm_rows_reference(x, g, TW, matmul_dtype=mm)
+                        torch.cuda.synchronize()
+                        err = (e - e_r).abs().max().item()
+                        k3_err[mm] = max(k3_err[mm], err)
+                        require(e.shape == (M, Fdim) and torch.isfinite(e).all().item(), "k3",
+                                f"bad output F={Fdim} M={M} t={t} {mm}")
+                        require(err <= k3_tol[mm], "k3",
+                                f"max|err| {err} > {k3_tol[mm]} at F={Fdim} M={M} t={t} {mm}")
+        tden = TMDMDenoiser(1, T_STEPS + 1).to(dev).eval()
+        TW = tmdm_weights(tden)
+        x = torch.randn(M_TMDM, 2, generator=gen, device=dev)
+        g = tmdm_gammas(tden, 50)
+        k3_ms, k3_plain_ms, k3_bound = {}, {}, {}
+        for mm in ("float32", "bfloat16"):
+            kw = kernel_weights(TW, torch.bfloat16 if mm == "bfloat16" else torch.float32)
+            k3_ms[mm] = cuda_ms(lambda: fused_tmdm_rows(x, g, kw, matmul_dtype=mm))
+            k3_plain_ms[mm] = cuda_ms(
+                lambda: fused_tmdm_rows_reference(x, g, TW, matmul_dtype=mm))
+            k3_bound[mm] = bound_ms(k3_flops(M_TMDM), 4 * M_TMDM * 3, mm)
+        del x
+    emit(phase="k3", card=smi_line, max_abs_err=k3_err, tol=k3_tol, rows=M_TMDM,
+         ms=k3_ms, plain_ms=k3_plain_ms,
+         bound_ms={k: v[0] for k, v in k3_bound.items()},
+         bound_by={k: v[1] for k, v in k3_bound.items()})
+
+    def zero_counts():
+        fused_denoiser_rows.launches = 0
+        fused_chain_rows.launches = 0
+        fused_tmdm_rows.launches = 0
+
+    # -- 6. the NsDiff main path at full width -----------------------------------
     model = NsDiffModel(NET_PARAM, seed=0, device="cuda")
     mm_main = str(model.sampling_dtype()).replace("torch.", "")
     fast_mpv_sweep(model, make_windows(CHUNK), PRED_LEN, chunk_windows=CHUNK)  # warm-up
     wins = make_windows(N_WINDOWS)
     n_chunks = -(-N_WINDOWS // CHUNK)
-    fused_denoiser_rows.launches = 0
-    fused_chain_rows.launches = 0
+    zero_counts()
     elapsed, (mpv, pmean) = host_s(
         lambda: fast_mpv_sweep(model, wins, PRED_LEN, chunk_windows=CHUNK))
     k1_launches = fused_denoiser_rows.launches
@@ -301,9 +368,8 @@ def main():
     require(excess <= 0, "main_vs_plain", f"K1 chain off the plain chain by {excess}")
     del a, b
 
-    # -- 6. the K2 arm at full width ---------------------------------------------
-    fused_denoiser_rows.launches = 0
-    fused_chain_rows.launches = 0
+    # -- 7. the K2 arm at full width ---------------------------------------------
+    zero_counts()
     t_k2, ens2 = host_s(lambda: fused_nsdiff_chain(
         model.denoiser, y0h, gxh, model.sched, seed=11, n_z_samples=N_Z, matmul_dtype=mm_main))
     k2_launches = fused_chain_rows.launches
@@ -315,9 +381,79 @@ def main():
          rel=rel, per_window_max_rel=((mpv_k2 - mpv_k1).abs() / mpv_k1).max().item(),
          k2_launches=k2_launches)
     require(rel <= 0.01, "k2_arm", f"K2 arm MPV {m2} vs K1 path {m1}: {rel:.4%}")
-    del ens, ens2
+    del ens, ens2, y0h, gxh, model
 
-    # -- 7. trained weights -------------------------------------------------------
+    # -- 8. the TMDM path at full width -------------------------------------------
+    tmdm = diffusion_models("TMDM", TMDM_PARAM, seed=0, device="cuda")
+    fast_mpv_sweep(tmdm, make_windows(T_CHUNK), PRED_LEN, chunk_windows=T_CHUNK)  # warm-up
+    twins = make_windows(T_WINDOWS)
+    t_chunks = -(-T_WINDOWS // T_CHUNK)
+    zero_counts()
+    t_elapsed, (t_mpv, t_pmean) = host_s(
+        lambda: fast_mpv_sweep(tmdm, twins, PRED_LEN, chunk_windows=T_CHUNK))
+    k3_launches = fused_tmdm_rows.launches
+    require(k3_launches == T_STEPS * t_chunks, "tmdm",
+            f"K3 launched {k3_launches} times, expected {T_STEPS * t_chunks}")
+    require(fused_denoiser_rows.launches == 0 and fused_chain_rows.launches == 0, "tmdm",
+            "the TMDM path launched an NsDiff kernel")
+    require(t_mpv.shape == (T_WINDOWS,) and np.isfinite(t_mpv).all() and (t_mpv > 0).all()
+            and np.isfinite(t_pmean).all(), "tmdm", f"bad MPV {t_mpv[:4]}")
+    x0 = torch.as_tensor(tmdm.scaler_transform(twins[:T_CHUNK].reshape(-1, WINDOWS, 1)),
+                         dtype=torch.float32, device=dev)
+    t_cond, (y0t, embt) = host_s(lambda: tmdm.cond_fn(x0))
+    require(y0t.shape == (T_CHUNK * NODE, T_LABEL + PRED_LEN, 1), "tmdm",
+            f"y_0_hat shape {tuple(y0t.shape)}")
+    t_tchain, tens = host_s(lambda: tmdm.sample_chain(y0t, embt, torch.Generator(
+        device=dev).manual_seed(3), N_Z))
+    t_tred, _ = host_s(lambda: mpv_reduce(tens, std, 0 * std, T_CHUNK, NODE, PRED_LEN))
+    emit(phase="tmdm", card=smi_line, windows=T_WINDOWS, chunk=T_CHUNK, seconds=t_elapsed,
+         windows_per_hr=T_WINDOWS / t_elapsed * 3600.0, k3_launches=k3_launches,
+         k3_matmul_dtype=mm_main, rows_per_launch=M_TMDM,
+         split_s={"cond": t_cond, "chain": t_tchain, "reduce": t_tred},
+         mpv_first=t_mpv[:4].tolist())
+    del tens
+    # the same chunk's chain through K3 and through the plain TMDMDenoiser,
+    # float32, same generator seed
+    tmdm.net_param["sampling_dtype"] = "float32"
+    a = tmdm.sample_chain(y0t, embt, torch.Generator(device=dev).manual_seed(9), N_Z,
+                          use_kernel=True)
+    b = tmdm.sample_chain(y0t, embt, torch.Generator(device=dev).manual_seed(9), N_Z,
+                          use_kernel=False)
+    tmdm.net_param["sampling_dtype"] = mm_main
+    # bar: float32 on both sides with sums in another order, carried through
+    # 100 reverse steps
+    excess = ((a - b).abs() - (1e-4 + 1e-4 * b.abs())).max().item()
+    emit(phase="tmdm_vs_plain", card=smi_line, max_abs_err=(a - b).abs().max().item(),
+         tol="rtol 1e-4 atol 1e-4")
+    require(a.shape == (T_CHUNK * NODE, PRED_LEN, 1, N_Z) and excess <= 0, "tmdm_vs_plain",
+            f"K3 chain off the plain chain by {excess}")
+    del a, b, y0t, embt
+
+    # -- 9. the cache-first runner on the card -------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = Path(tmp) / "pred_future.pt"
+        zero_counts()
+        t_cache, ens_list = host_s(lambda: run_evaluation_cache(
+            tmdm, twins[:4], PRED_LEN, cache, chunk_windows=T_CHUNK, checkpoint_every=2))
+        swept = fused_tmdm_rows.launches
+        require(swept == 2 * T_STEPS, "cache", f"K3 launched {swept} times, expected {2 * T_STEPS}")
+        loaded = load_tensor_list(cache)
+        require(len(loaded) == len(ens_list) == 4
+                and all(a.shape == (NODE, PRED_LEN, 1, N_Z) and np.isfinite(a).all()
+                        for a in loaded), "cache", "the .pt cache does not hold 4 finite "
+                f"[{NODE},{PRED_LEN},1,{N_Z}] arrays")
+        left = sorted(p.name for p in Path(tmp).iterdir())
+        require(left == ["pred_future.pt", "pred_future.pt.mpv.json"], "cache",
+                f"left behind: {left}")
+        again = run_evaluation_cache(tmdm, twins[:4], PRED_LEN, cache, chunk_windows=T_CHUNK)
+        require(fused_tmdm_rows.launches == swept and len(again) == 4
+                and all(np.array_equal(x, y) for x, y in zip(again, loaded)), "cache",
+                "the second call did not return the cache as it was")
+    emit(phase="cache", card=smi_line, windows=4, seconds=t_cache, k3_launches=swept,
+         files=left)
+    del tmdm
+
+    # -- 10. trained weights ------------------------------------------------------
     cfg = read_model_config(SIS_MODEL)
     sis, _ = load_model_from_dir(SIS_MODEL, device="cuda")
     data = load_dynamic_data(SIS_DATA, dynamic_type="SIS")
@@ -354,6 +490,9 @@ def main():
         row("chain_resident", "upgdm_tpu_torch/csrc/chain_resident.cu",
             "upgdm_tpu/ops/pallas/chain_resident.py:188", k2_launches,
             k2_err["float32_gx0"], k2_ms, k2_plain_ms, k2_bound),
+        row("fused_tmdm", "upgdm_tpu_torch/csrc/fused_tmdm.cu",
+            "upgdm_tpu/ops/pallas/fused_denoiser.py:250", k3_launches, k3_err[mm_main],
+            k3_ms, k3_plain_ms, k3_bound),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,11 @@ kernels under ``csrc/`` with their Python wrappers in ``ops/kernels/``.
 Importing the package pulls in ``torch``, ``numpy`` and ``yaml`` only — never
 ``jax``, ``flax``, ``optax`` or anything of ``upgdm_tpu``.
 
-Entry points (``NsDiffModel``, ``fast_mpv_sweep``, ``load_model_from_dir``)
-run on ``"cuda"`` unless the caller passes ``device="cpu"``; with no card and
-no explicit CPU device they raise.
+Entry points (``diffusion_models``, ``NsDiffModel``, ``TMDMModel``,
+``load_model_from_dir``, ``fast_mpv_sweep``, ``run_evaluation_cache``) run on
+``"cuda"`` unless the caller passes ``device="cpu"``; with no card and no
+explicit CPU device they raise.
 """
+from .models.factory import diffusion_models
+
+__all__ = ["diffusion_models"]

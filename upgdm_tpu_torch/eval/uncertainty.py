@@ -1,26 +1,35 @@
 """The MPV sweep: rolling windows -> ensembles -> mean predictive variance.
 
-Counterpart of the sweep subset of ``upgdm_tpu/eval/uncertainty.py``:
-``fast_mpv_sweep`` (the engine of ``uncertainty_ews(..., cache_mode="none")``),
-``batched_window_ensemble``, ``batched_gx``, the two summarizers,
-``load_dynamic_data`` and a minimal NsDiff ``load_model_from_dir``.
+Counterpart of the sweep and cache-runner subset of
+``upgdm_tpu/eval/uncertainty.py``: ``fast_mpv_sweep`` (the engine of
+``uncertainty_ews(..., cache_mode="none")``), ``batched_window_ensemble``,
+``batched_gx``, the two summarizers, ``load_dynamic_data``,
+``load_model_from_dir`` (through the model factory, with a small LRU) and
+the cache-first runners ``run_evaluation_cache``, ``resume_mpv_sweep`` and
+``run_nsdiff_g_cache`` with their ``.partial``/``.meta`` checkpoints and
+``.mpv.json`` sidecars. The file formats are the JAX package's, so either
+package resumes a sweep the other began.
 
 Each sweep batches ``chunk_windows`` windows per call (flattened with the
 node rows into the batch axis), pads the last chunk to the same shape, and
 is double-buffered: chunk i+1 is enqueued on the device before chunk i's
 results are read back. MPV is taken in raw space, after the inverse scaler.
-The ``uncertainty_ews`` facade, the prediction caches and the sidecars are
-not ported yet.
+The ``uncertainty_ews`` facade, ``run_diffstg_evaluation_cache`` and the
+SLBP analyses are not ported yet.
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import sys
+from collections import OrderedDict
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..models.nsdiff import NsDiffModel
+from ..models.factory import diffusion_models
 from ..ops.windows import dynamic_name, normalize_time_series
 from ..utils import io as uio
 from ..utils.device import resolve_device
@@ -33,6 +42,10 @@ __all__ = [
     "batched_window_ensemble",
     "fast_mpv_sweep",
     "batched_gx",
+    "bounded_chunk_windows",
+    "run_evaluation_cache",
+    "resume_mpv_sweep",
+    "run_nsdiff_g_cache",
 ]
 
 
@@ -70,21 +83,52 @@ def load_dynamic_data(data_file, dynamic_type=None):
     }
 
 
-def load_model_from_dir(model_save_file, device=None, infer_params=None):
-    """(model, net_param) from ``<dir>/model_trained`` + its yaml (NsDiff)."""
+#: Corpus sweeps call the evaluators once per trajectory with the same
+#: per-dynamics model directory; without a cache every call rebuilds the
+#: model and re-ships its weights to the device. Keyed by checkpoint identity
+#: (path + mtime + size), infer_params and device, so retrained checkpoints,
+#: differing inference overrides and devices never alias. Small LRU: a corpus
+#: alternates between at most a few per-dynamics models.
+_MODEL_CACHE: "OrderedDict" = OrderedDict()
+_MODEL_CACHE_SIZE = 3
+
+
+def load_model_from_dir(model_save_file, device=None, infer_params=None,
+                        method_config=None, use_cache=True):
+    """(model, net_param) from ``<dir>/model_trained`` + its yaml, for any
+    ported ``task_model``."""
     device = resolve_device(device)
     model_save_file = Path(model_save_file)
-    method_config = uio.read_model_config(model_save_file)
-    train_model_select = (method_config.get("train") or {}).get(
-        "train_model_select", "NsDiff_model")
-    net_param, state_dict = uio.load_checkpoint(
-        model_save_file / "model_trained", infer_para=infer_params
+    ckpt = model_save_file / "model_trained"
+    key = None
+    if use_cache and method_config is None and ckpt.exists():
+        st = ckpt.stat()
+        key = (
+            str(model_save_file.resolve()), st.st_mtime_ns, st.st_size,
+            None if infer_params is None else repr(sorted(infer_params.items())),
+            str(device),
+        )
+        hit = _MODEL_CACHE.get(key)
+        if hit is not None:
+            _MODEL_CACHE.move_to_end(key)
+            model, net_param = hit
+            # callers may mutate the returned config dict; the model is
+            # deliberately shared
+            return model, dict(net_param)
+    method_config = method_config or uio.read_model_config(model_save_file)
+    train_model_select = (method_config.get("train") or {}).get("train_model_select")
+    net_param, state_dict = uio.load_checkpoint(ckpt, infer_para=infer_params)
+    model = diffusion_models(
+        task_model=net_param["task_model"],
+        net_param=net_param,
+        train_model_select=train_model_select,
+        device=device,
     )
-    if net_param.get("task_model") != "NsDiff":
-        raise NotImplementedError(
-            f"task_model={net_param.get('task_model')!r}: only NsDiff is ported")
-    model = NsDiffModel(net_param, train_model_select=train_model_select, device=device)
     model.load_state_dict(state_dict)
+    if key is not None:
+        _MODEL_CACHE[key] = (model, dict(net_param))
+        while len(_MODEL_CACHE) > _MODEL_CACHE_SIZE:
+            _MODEL_CACHE.popitem(last=False)
     return model, net_param
 
 
@@ -192,7 +236,11 @@ def batched_window_ensemble(model, windows_array: np.ndarray, pred_len: int,
     out: List[np.ndarray] = []
 
     def dispatch(flat, valid):
-        outs, _ = model.evaluation_step(flat, use_gx_directly=use_gx_directly and model.has_g)
+        if use_gx_directly and getattr(model, "has_g", False):
+            # NsDiff-only `_pe` variant: gx replaces the per-step sigma solve
+            outs, _ = model.evaluation_step(flat, use_gx_directly=True)
+        else:
+            outs, _ = model.evaluation_step(flat)
         return outs, valid
 
     def drain(outs, valid):
@@ -267,3 +315,209 @@ def batched_gx(model, windows_array: np.ndarray, chunk_windows: int = 64,
 
     _double_buffered(dispatch, drain, _chunks(model, windows_array, chunk))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Cache-first runners
+# ---------------------------------------------------------------------------
+
+def bounded_chunk_windows(model, windows_array, chunk_windows):
+    """Per-call window chunk bounded by the model's ``eval_rows_per_call``.
+
+    A family whose sampler's memory and device time per call scale with
+    window-rows x draws declares that attribute; network records multiply
+    rows by the node count. Models without it keep the caller's chunk.
+    """
+    cap = getattr(model, "eval_rows_per_call", None)
+    if not cap:
+        return chunk_windows
+    node = windows_array.shape[1]
+    return max(1, min(chunk_windows, int(cap) // max(1, node)))
+
+
+def _sweep_fingerprint(windows_array, pred_len, n) -> str:
+    """Content hash binding a ``.partial`` checkpoint to its sweep inputs.
+
+    A resumed sweep concatenates cached and fresh ensembles; if the source
+    corpus was regenerated between runs the stale prefix would be wrong, not
+    just slow. The hash covers the raw window values plus the sweep geometry,
+    so any corpus or windowing change discards the partial."""
+    h = hashlib.sha256()
+    arr = np.ascontiguousarray(np.asarray(windows_array, dtype=np.float32))
+    h.update(repr((arr.shape, int(pred_len), int(n))).encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _load_partial(partial_path: Path, fingerprint: str, n: int) -> List[np.ndarray]:
+    """Resume list from a ``.partial`` if its sidecar fingerprint matches.
+
+    Partials without a ``.meta`` sidecar are accepted (the format before
+    fingerprints); a mismatching or unreadable partial is discarded, never
+    fatal."""
+    meta_path = partial_path.with_name(partial_path.name + ".meta")
+    try:
+        if meta_path.exists() and meta_path.read_text().strip() != fingerprint:
+            return []
+        return uio.load_tensor_list(partial_path)[:n]
+    except Exception:
+        return []
+
+
+def _flush_partial(partial_path: Path, data: List[np.ndarray], fingerprint: str,
+                   n: int) -> None:
+    """Atomic (tmp-then-rename) partial checkpoint + fingerprint sidecar."""
+    tmp = partial_path.with_name(partial_path.name + ".tmp")
+    uio.save_tensor_list(data, tmp)
+    tmp.replace(partial_path)
+    meta_path = partial_path.with_name(partial_path.name + ".meta")
+    meta_tmp = meta_path.with_name(meta_path.name + ".tmp")
+    meta_tmp.write_text(fingerprint)
+    meta_tmp.replace(meta_path)
+    print(f"[sweep] {len(data)}/{n} windows -> {partial_path.name}",
+          file=sys.stderr, flush=True)
+
+
+def _clear_partial(partial_path: Path) -> None:
+    partial_path.unlink(missing_ok=True)
+    partial_path.with_name(partial_path.name + ".meta").unlink(missing_ok=True)
+
+
+# The per-window ensemble `.pt` caches are gigabytes and regenerable; the MPV
+# summary they reduce to is a few KB. Writing that summary to a
+# `<cache>.pt.mpv.json` sidecar at every partial flush makes a half-finished
+# sweep resumable at the MPV level (only the remaining windows are
+# recomputed) and lets figures render from sidecars alone. The fingerprint
+# binds a sidecar to the exact window values and geometry.
+
+def _mpv_sidecar_path(cache_path: Path) -> Path:
+    cache_path = Path(cache_path)
+    return cache_path.with_name(cache_path.name + ".mpv.json")
+
+
+def _load_mpv_sidecar(cache_path) -> Optional[dict]:
+    p = _mpv_sidecar_path(cache_path)
+    if not p.exists():
+        return None
+    try:
+        d = json.loads(p.read_text())
+    except Exception:
+        return None
+    if not isinstance(d, dict) or "ews" not in d or "fingerprint" not in d:
+        return None
+    return d
+
+
+def _save_mpv_sidecar(cache_path, *, fingerprint: str, n_total: int,
+                      sample_window_step, pred_mean, ews,
+                      complete: bool, extra: Optional[dict] = None) -> None:
+    payload = {
+        "version": 1,
+        "fingerprint": fingerprint,
+        "n_windows_total": int(n_total),
+        "n_windows_done": len(ews),
+        "sample_window_step": (None if sample_window_step is None
+                               else int(sample_window_step)),
+        "pred_mean": [float(v) for v in pred_mean],
+        "ews": [float(v) for v in ews],
+        "complete": bool(complete),
+    }
+    if extra:
+        payload.update(extra)
+    p = _mpv_sidecar_path(cache_path)
+    tmp = p.with_name(p.name + ".tmp")
+    tmp.write_text(json.dumps(payload))
+    tmp.replace(p)
+
+
+def run_evaluation_cache(
+    model, windows_array, pred_len, cache_path, device=None, force_recompute=False,
+    max_windows=None, chunk_windows=8, checkpoint_every=32, sample_window_step=None,
+):
+    """Sweep -> `.pt` ensemble cache, with mid-sweep checkpointing.
+
+    An existing cache is returned as it is. Otherwise, every
+    ``checkpoint_every`` windows the finished ensembles are flushed to
+    ``<cache>.partial`` (atomically, with a fingerprint ``.meta`` and an
+    ``.mpv.json`` sidecar) and a rerun resumes from them instead of
+    recomputing the whole trajectory. The partial is deleted once the real
+    cache lands; a corrupt or stale partial is discarded, not fatal.
+    """
+    cache_path = Path(cache_path)
+    if cache_path.exists() and not force_recompute:
+        return uio.load_tensor_list(cache_path)
+    n = len(windows_array)
+    if max_windows is not None:
+        n = min(n, max_windows)
+    partial_path = cache_path.with_name(cache_path.name + ".partial")
+    fingerprint = _sweep_fingerprint(windows_array[:n], pred_len, n)
+    pred_future_list: List[np.ndarray] = []
+    if partial_path.exists() and not force_recompute:
+        pred_future_list = _load_partial(partial_path, fingerprint, n)
+    while len(pred_future_list) < n:
+        stop = min(len(pred_future_list) + max(int(checkpoint_every), 1), n)
+        pred_future_list.extend(batched_window_ensemble(
+            model, windows_array[len(pred_future_list):stop], pred_len,
+            chunk_windows=chunk_windows, device=device,
+        ))
+        if stop < n:
+            _flush_partial(partial_path, pred_future_list, fingerprint, n)
+            pm, ews = summarize_pred_future_list(pred_future_list, model=model)
+            _save_mpv_sidecar(cache_path, fingerprint=fingerprint, n_total=n,
+                              sample_window_step=sample_window_step,
+                              pred_mean=pm, ews=ews, complete=False)
+    uio.save_tensor_list(pred_future_list, cache_path)
+    _clear_partial(partial_path)
+    return pred_future_list
+
+
+def resume_mpv_sweep(model, windows_array, pred_len, cache_path, sidecar, n,
+                     chunk_windows=8, checkpoint_every=32,
+                     sample_window_step=None, device=None):
+    """MPV-level sweep resume from a partial sidecar.
+
+    The ensemble ``.pt``/``.partial`` of the done prefix is gone but the
+    sidecar holds its per-window MPVs: compute ensembles only for the
+    remaining windows, summarize them with the live model's scaler,
+    concatenate, and keep the sidecar flushed. The full ensemble cache is not
+    materialized (its prefix no longer exists); the completed sidecar is the
+    arm's durable artifact.
+    """
+    fingerprint = sidecar["fingerprint"]
+    pred_mean = [float(v) for v in sidecar["pred_mean"]]
+    ews = [float(v) for v in sidecar["ews"]]
+    while len(ews) < n:
+        stop = min(len(ews) + max(int(checkpoint_every), 1), n)
+        chunk = batched_window_ensemble(
+            model, windows_array[len(ews):stop], pred_len,
+            chunk_windows=chunk_windows, device=device,
+        )
+        pm_c, ews_c = summarize_pred_future_list(chunk, model=model)
+        pred_mean.extend(pm_c)
+        ews.extend(ews_c)
+        _save_mpv_sidecar(cache_path, fingerprint=fingerprint, n_total=n,
+                          sample_window_step=sample_window_step,
+                          pred_mean=pred_mean, ews=ews,
+                          complete=len(ews) >= n)
+        print(f"[sweep] {len(ews)}/{n} windows (mpv-resume) -> "
+              f"{_mpv_sidecar_path(cache_path).name}", file=sys.stderr, flush=True)
+    return pred_mean, ews
+
+
+def run_nsdiff_g_cache(
+    model, windows_array, cache_path, device=None, pred_dim=0, force_recompute=False,
+    max_windows=None,
+):
+    """gx for all windows -> `.pt` cache; None for a model without g(x)."""
+    cache_path = Path(cache_path)
+    if cache_path.exists() and not force_recompute:
+        return uio.load_tensor_list(cache_path)
+    if not getattr(model, "has_g", False):
+        return None
+    arr = windows_array[:max_windows] if max_windows is not None else windows_array
+    g_list = batched_gx(model, arr, device=device)
+    for gx in g_list:
+        if pred_dim >= gx.shape[-1]:
+            raise IndexError(f"pred_dim {pred_dim} out of bounds for F={gx.shape[-1]}.")
+    uio.save_tensor_list(g_list, cache_path)
+    return g_list

@@ -3,15 +3,16 @@
 Counterpart of ``upgdm_tpu/models/base.py``. A wrapper holds its torch
 modules in one ``nn.ModuleDict`` (``self.net``) whose top-level names are the
 JAX package's param-tree roots (``cond_pred_model``, ``cond_pred_model_g``,
-``model``), and keeps the reference's stateful surface: scalers,
-``state_dict``/``load_state_dict`` over the flax-named flat dict, and the
-sampling dtype knobs.
+``enc_embedding``, ``model``), and keeps the reference's stateful surface:
+scalers, ``state_dict``/``load_state_dict`` over the flax-named flat dict, and
+the sampling dtype knobs.
 
 RNG: an explicit ``torch.Generator`` on the model's device, seeded from
 ``seed``, replaces the JAX package's fold-in key counter.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict
 
 import numpy as np
@@ -54,6 +55,7 @@ class DiffusionWrapperBase:
         self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.net = nn.ModuleDict()
+        self._cast_cache = {}
 
     # -- scaler (reference semantics: NsDiff_model.py:99-110) --------------
     def scaler_fit(self, data):
@@ -89,10 +91,16 @@ class DiffusionWrapperBase:
         for k in SCALER_KEYS:
             flat.pop(k, None)
         self.net.load_state_dict(torch_state_from_flax(flat), strict=strict)
-        self._on_weights_changed()
+        self._cast_cache = {}
 
-    def _on_weights_changed(self):
-        """Hook for wrappers that cache derived copies of their weights."""
+    def _cast(self, name: str, dtype: torch.dtype) -> nn.Module:
+        """net[name], or a cached copy of it cast to ``dtype``."""
+        if dtype == torch.float32:
+            return self.net[name]
+        key = (name, dtype)
+        if key not in self._cast_cache:
+            self._cast_cache[key] = copy.deepcopy(self.net[name]).to(dtype)
+        return self._cast_cache[key]
 
     # -- helpers ------------------------------------------------------------
     def dtype_param(self, name: str, default: str) -> torch.dtype:
@@ -111,3 +119,22 @@ class DiffusionWrapperBase:
     def as_batch(self, batch) -> torch.Tensor:
         """A batch (numpy or tensor) as float32 on the model's device."""
         return torch.as_tensor(batch, dtype=torch.float32, device=self.device)
+
+    def split_batch(self, batch):
+        """(batch_x [B, W, N], batch_y [B, pred_len, N] or None) of a batch
+        that holds the history and, where it is long enough, the target."""
+        batch = self.as_batch(batch)
+        batch_x = batch[:, : self.windows, :]
+        batch_y = (
+            batch[:, self.windows : self.windows + self.pred_len, :]
+            if batch.shape[1] - self.windows >= self.pred_len
+            else None
+        )
+        return batch_x, batch_y
+
+    @staticmethod
+    def init_series_conv(module: nn.Module) -> None:
+        """He-normal Projector convolutions, as flax initialises them."""
+        for name, prm in module.named_parameters():
+            if name.endswith("series_conv_kernel"):
+                nn.init.normal_(prm, std=(2.0 / (prm.shape[1] * prm.shape[2])) ** 0.5)

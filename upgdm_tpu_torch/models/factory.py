@@ -1,0 +1,29 @@
+"""Model factory — string dispatch over the ported diffusion families.
+
+Counterpart of ``upgdm_tpu/models/factory.py``. NsDiff and TMDM are ported;
+every other family raises until its slice lands.
+"""
+from __future__ import annotations
+
+__all__ = ["diffusion_models"]
+
+
+def diffusion_models(task_model: str, net_param: dict, **kwargs):
+    """Build ``task_model`` from ``net_param``; keywords: ``seed``,
+    ``device`` and, for NsDiff, ``train_model_select``."""
+    seed = kwargs.get("seed", 0)
+    device = kwargs.get("device")
+    if task_model == "TMDM":
+        from .tmdm import TMDMModel
+
+        return TMDMModel(net_param=net_param, seed=seed, device=device)
+    if task_model == "NsDiff":
+        from .nsdiff import NsDiffModel
+
+        return NsDiffModel(
+            net_param=net_param,
+            train_model_select=kwargs.get("train_model_select") or "NsDiff_model",
+            seed=seed,
+            device=device,
+        )
+    raise NotImplementedError(f"task_model={task_model!r}: this family is not yet ported")

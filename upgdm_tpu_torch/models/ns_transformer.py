@@ -1,7 +1,8 @@
-"""Non-stationary Transformer: NsDiff's mean head f(x).
+"""Non-stationary Transformer: NsDiff's mean head f(x) and TMDM's
+VAE-regularised conditional predictor.
 
-Counterpart of ``Projector``, the encoder/decoder layers and
-``NSTransformer`` in ``upgdm_tpu/models/ns_transformer.py``. Submodules are
+Counterpart of ``Projector``, the encoder/decoder layers, ``NSTransformer``
+and ``NSTransformerVAE`` in ``upgdm_tpu/models/ns_transformer.py``. Submodules are
 named after flax's auto-names (``Dense_0``, ``LayerNorm_1``,
 ``NSEncoderLayer_0``, ...) so that ``utils/weights.py`` maps checkpoints with
 transposes only. Dropout is inert at inference and not modelled.
@@ -23,7 +24,7 @@ from .attention import AttentionLayer
 from .embedding import DataEmbedding
 from .sigma_estimation import LN_EPS
 
-__all__ = ["Projector", "NSEncoder", "NSDecoder", "NSTransformer"]
+__all__ = ["Projector", "NSEncoder", "NSDecoder", "NSTransformer", "NSTransformerVAE"]
 
 
 def _act(name: str):
@@ -162,7 +163,8 @@ class NSTransformer(nn.Module):
         self.dec_embedding = DataEmbedding(enc_in, d_model)
         self.decoder = NSDecoder(d_layers, d_model, d_ff, n_heads, enc_in, activation)
 
-    def forward(self, x_enc):
+    def encode(self, x_enc):
+        """(enc [B, S, d], ctx): the encoder output and what ``decode`` needs."""
         x_raw = x_enc
         mean_enc, std_enc = _series_stats(x_enc)
         x_norm = (x_enc - mean_enc) / std_enc
@@ -176,6 +178,55 @@ class NSTransformer(nn.Module):
         tau = torch.exp(self.tau_learner(x_raw, std_enc))
         delta = self.delta_learner(x_raw, mean_enc)
         enc = self.encoder(self.enc_embedding(x_norm), tau=tau, delta=delta)
+        return enc, (x_dec, tau, delta, mean_enc, std_enc)
+
+    def decode(self, enc, ctx):
+        """dec_out [B, L+P, F] in the raw scale of x_enc."""
+        x_dec, tau, delta, mean_enc, std_enc = ctx
         dec_out = self.decoder(self.dec_embedding(x_dec), enc, tau=tau, delta=delta)
-        dec_out = dec_out * std_enc + mean_enc
+        return dec_out * std_enc + mean_enc
+
+    def forward(self, x_enc):
+        enc, ctx = self.encode(x_enc)
+        dec_out = self.decode(enc, ctx)
         return dec_out[:, -self.pred_len:, :], dec_out
+
+
+class NSTransformerVAE(NSTransformer):
+    """TMDM's conditional predictor with a VAE latent z between encoder and
+    decoder (tmdm_ns_transformer.py:40-174).
+
+    x_enc [B, S, F] -> (pred, dec_out, kl_z, z_sample); dec_out spans
+    label_len + pred_len and is the y0_hat TMDM conditions on. In
+    deterministic mode (sampling) z_sample is z_mean; otherwise it is
+    reparameterised with the mean of ``n_reparam_samples`` normals drawn
+    from ``generator``.
+    """
+
+    def __init__(self, seq_len, label_len, pred_len, enc_in, d_model=64, n_heads=4,
+                 e_layers=2, d_layers=1, d_ff=128, activation="gelu",
+                 p_hidden_dims=(64, 64), p_hidden_layers=2, n_reparam_samples=100):
+        super().__init__(seq_len, label_len, pred_len, enc_in, d_model, n_heads, e_layers,
+                         d_layers, d_ff, activation, p_hidden_dims, p_hidden_layers)
+        self.n_reparam_samples = n_reparam_samples
+        for name in ("z_mean", "z_logvar", "z_out"):
+            for i in (0, 1):
+                setattr(self, f"{name}_{i}", nn.Linear(d_model, d_model))
+
+    def _mlp(self, name, h):
+        return getattr(self, f"{name}_1")(F.relu(getattr(self, f"{name}_0")(h)))
+
+    def forward(self, x_enc, deterministic: bool = True, generator=None):
+        enc, ctx = self.encode(x_enc)
+        z_mean = self._mlp("z_mean", enc)
+        z_logvar = self._mlp("z_logvar", enc)
+        if deterministic:
+            z_sample = z_mean
+        else:  # mean + sqrt(var) * eps_bar, eps_bar ~ N(0, 1/n)
+            eps = torch.randn((self.n_reparam_samples,) + z_mean.shape, generator=generator,
+                              dtype=z_mean.dtype, device=z_mean.device).mean(dim=0)
+            z_sample = z_mean + torch.sqrt(torch.exp(z_logvar)) * eps
+        kl_z = torch.mean(
+            -0.5 * torch.mean(1 - z_mean ** 2 + z_logvar - torch.exp(z_logvar), dim=1))
+        dec_out = self.decode(self._mlp("z_out", z_sample), ctx)
+        return dec_out[:, -self.pred_len:, :], dec_out, kl_z, z_sample

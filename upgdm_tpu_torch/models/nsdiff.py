@@ -21,11 +21,9 @@ ported yet.
 """
 from __future__ import annotations
 
-import copy
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ..ops import diffusion as D
 from ..ops.kernels.fused_denoiser import (
@@ -91,9 +89,7 @@ class NsDiffModel(DiffusionWrapperBase):
                     p_hidden_dims=tuple(p.get("p_hidden_dims", (64, 64))),
                     p_hidden_layers=p.get("p_hidden_layers", 2),
                 )
-                for name, prm in self.net["cond_pred_model"].named_parameters():
-                    if name.endswith("series_conv_kernel"):  # he-normal, as flax
-                        nn.init.normal_(prm, std=(2.0 / (prm.shape[1] * prm.shape[2])) ** 0.5)
+                self.init_series_conv(self.net["cond_pred_model"])
             if has_g:
                 self.net["cond_pred_model_g"] = SigmaEstimation(
                     self.windows, self.pred_len, self.dataset_nf, 512, self.rolling_length
@@ -101,24 +97,11 @@ class NsDiffModel(DiffusionWrapperBase):
             if has_denoiser:
                 self.net["model"] = NsDiffDenoiser(self.dataset_nf, self.diffusion_steps)
         self.net.to(self.device).eval()
-        self._cast_cache = {}
 
     # ------------------------------------------------------------------
     @property
     def denoiser(self) -> Optional[NsDiffDenoiser]:
         return self.net["model"] if self.has_denoiser else None
-
-    def _on_weights_changed(self):
-        self._cast_cache = {}
-
-    def _cast(self, name: str, dtype: torch.dtype) -> nn.Module:
-        """net[name], or a cached copy of it cast to ``dtype``."""
-        if dtype == torch.float32:
-            return self.net[name]
-        key = (name, dtype)
-        if key not in self._cast_cache:
-            self._cast_cache[key] = copy.deepcopy(self.net[name]).to(dtype)
-        return self._cast_cache[key]
 
     def _apply_f(self, batch_x, dtype=torch.float32):
         if not self.has_f:
@@ -219,12 +202,6 @@ class NsDiffModel(DiffusionWrapperBase):
 
     def evaluation_step(self, batch, use_gx_directly: bool = False):
         """(outs [B, O, N, n_z_samples], batch_y or None) — NsDiff_model.py:180-268."""
-        batch = self.as_batch(batch)
-        batch_x = batch[:, : self.windows, :]
-        batch_y = (
-            batch[:, self.windows : self.windows + self.pred_len, :]
-            if batch.shape[1] - self.windows >= self.pred_len
-            else None
-        )
+        batch_x, batch_y = self.split_batch(batch)
         outs = self.sample_fn(batch_x, self.generator, self.n_z_samples, use_gx_directly)
         return outs, batch_y

@@ -1,10 +1,10 @@
-"""NsDiff reverse-diffusion math (the sampling part).
+"""NsDiff and CARD (TMDM) reverse-diffusion math (the sampling part).
 
-Counterpart of the NsDiff section of ``upgdm_tpu/ops/diffusion.py``
-(nsdiff_utils.py:40-92,111-158,163-239,271-284 of the reference). The
-reverse chain is a Python loop over t; the denoiser is injected as
-``model_fn(y, t) -> (eps_theta, sigma_theta)`` so the same loop runs the
-plain module on the CPU and the fused kernel on the card.
+Counterpart of the NsDiff and TMDM/CARD sections of
+``upgdm_tpu/ops/diffusion.py`` (nsdiff_utils.py:40-92,111-158,163-239,271-284
+and tmdm_diffusion_utils.py:42-119 of the reference). A reverse chain is a
+Python loop over t; the denoiser is injected as ``model_fn(y, t)`` so the
+same loop runs the plain module on the CPU and the fused kernel on the card.
 
 Gaussians come from ``torch.randn(..., generator=g)``. The optional
 ``noise`` argument (z_T first, then one tensor per step t = T-1 .. 1) is a
@@ -27,6 +27,8 @@ __all__ = [
     "nsdiff_gather",
     "nsdiff_gammas",
     "nsdiff_p_sample_loop",
+    "card_q_sample",
+    "card_p_sample_loop",
     "schedule_on",
 ]
 
@@ -165,3 +167,83 @@ def nsdiff_p_sample_loop(
     sqrt_abar = torch.sqrt(1.0 - c.one_minus_abar_sqrt_t ** 2)
     _, noise_var = _noise_var(c, gx, sigma_theta, use_gx_directly)
     return (y - (1.0 - sqrt_abar) * y_T_mean - eps_theta * torch.sqrt(noise_var)) / sqrt_abar
+
+
+# ---------------------------------------------------------------------------
+# TMDM / CARD — conditional diffusion with the y0_hat prior
+# ---------------------------------------------------------------------------
+
+def _host_f32(arr) -> np.ndarray:
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    return np.asarray(arr, np.float32)
+
+
+def card_q_sample(y, y_0_hat, sched, t, noise):
+    """q(y_t | y_0, x) with the mean shifted toward y0_hat
+    (tmdm_diffusion_utils.py:42-53); t is a scalar or one step per batch row."""
+    t = torch.as_tensor(t, dtype=torch.long, device=y.device)
+
+    def g(arr):
+        c = torch.as_tensor(_host_f32(arr), device=y.device)[t]
+        return c.reshape(c.shape + (1,) * (y.ndim - c.ndim))
+
+    sqrt_abar = g(sched.alphas_bar_sqrt)
+    return sqrt_abar * y + (1.0 - sqrt_abar) * y_0_hat + g(sched.one_minus_alphas_bar_sqrt) * noise
+
+
+def card_p_sample_loop(
+    model_fn: Callable[[torch.Tensor, int], torch.Tensor],
+    y_0_hat: torch.Tensor,
+    sched,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Full CARD reverse chain (tmdm_diffusion_utils.py:57-119); returns the
+    final y_0 reparameterisation.
+
+    model_fn(y_t, t) -> eps_theta; y_T = z + y_0_hat (unit-variance prior).
+    ``noise``, when given, holds T tensors shaped like y_0_hat: z_T, then z
+    for t = T-1 .. 1.
+
+    The per-step coefficients are float32 arithmetic on the schedule's
+    float32 arrays, operation for operation what the JAX package computes on
+    its device (float64 coefficients would drift from it by more than 1e-5
+    over 100 steps); they are taken on the host for all steps at once, so
+    no step waits on a scalar from the device.
+    """
+    n_steps = int(np.shape(sched.alphas)[0])
+    if noise is not None and len(noise) != n_steps:
+        raise ValueError(f"noise: expected {n_steps} tensors, got {len(noise)}")
+
+    def draw(i):
+        if noise is not None:
+            return torch.as_tensor(noise[i], dtype=y_0_hat.dtype, device=y_0_hat.device)
+        return torch.randn(y_0_hat.shape, generator=generator, dtype=y_0_hat.dtype,
+                           device=y_0_hat.device)
+
+    one = np.float32(1.0)
+    alpha = _host_f32(sched.alphas)
+    s1m = _host_f32(sched.one_minus_alphas_bar_sqrt)
+    s1m_prev = np.roll(s1m, 1)  # entry t holds s1m[t-1]; entry 0 is never read
+    sqrt_alpha = np.sqrt(alpha)
+    sqrt_abar = np.sqrt(one - s1m ** 2)
+    sqrt_abar_prev = np.sqrt(one - s1m_prev ** 2)
+    gamma_0 = (one - alpha) * sqrt_abar_prev / (s1m ** 2)
+    gamma_1 = (s1m_prev ** 2) * sqrt_alpha / (s1m ** 2)
+    gamma_2 = one + (sqrt_abar - one) * (sqrt_alpha + sqrt_abar_prev) / (s1m ** 2)
+    sqrt_beta_hat = np.sqrt((s1m_prev ** 2) / (s1m ** 2) * (one - alpha))
+    shift = one - sqrt_abar
+
+    def reparam(y, eps_theta, t):
+        return (y - float(shift[t]) * y_T_mean - eps_theta * float(s1m[t])) / float(sqrt_abar[t])
+
+    y_T_mean = y_0_hat
+    y = draw(0) + y_T_mean
+    for i, t in enumerate(range(n_steps - 1, 0, -1)):
+        y0_reparam = reparam(y, model_fn(y, t), t)
+        y_mean = (float(gamma_0[t]) * y0_reparam + float(gamma_1[t]) * y
+                  + float(gamma_2[t]) * y_T_mean)
+        y = y_mean + float(sqrt_beta_hat[t]) * draw(i + 1)
+    # final step t=0 -> y_0 (deterministic reparameterisation)
+    return reparam(y, model_fn(y, 0), 0)

@@ -91,6 +91,8 @@ def _declare(lib):
     lib.upgdm_chain_resident.argtypes = [p, p, ll, i, i, p, u64, i, i, p, p, p, p, p, p, p,
                                          p, p, p, p, p, p, p, i, p]
     lib.upgdm_chain_resident.restype = i
+    lib.upgdm_fused_tmdm.argtypes = [p, ll, i, p, p, p, p, p, p, p, p, p, p, p, p, i, p]
+    lib.upgdm_fused_tmdm.restype = i
     lib.upgdm_error_string.argtypes = [i]
     lib.upgdm_error_string.restype = ctypes.c_char_p
 

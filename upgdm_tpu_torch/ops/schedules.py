@@ -1,9 +1,9 @@
-"""NsDiff noise schedule and its cumulants (numpy, host side).
+"""NsDiff and CARD (TMDM) noise schedules (numpy, host side).
 
-Counterpart of the NsDiff part of ``upgdm_tpu/ops/schedules.py``: the same
-float64 construction, stored as float32, so every array equals the JAX
-package's bit for bit. The schedule is static per configuration; the sampler
-gathers per-step scalars from it.
+Counterpart of the NsDiff and CARD parts of ``upgdm_tpu/ops/schedules.py``:
+the same float64 construction, stored as float32, so every array equals the
+JAX package's bit for bit. A schedule is static per configuration; the
+samplers gather per-step scalars from it.
 
 The reference's O(T^2) cumulant loops (NsDiff_net.py:22-54) are computed as
 the equivalent O(T) linear recurrences:
@@ -19,7 +19,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["make_beta_schedule", "nsdiff_cumulants", "NsDiffSchedule"]
+__all__ = ["make_beta_schedule", "nsdiff_cumulants", "NsDiffSchedule", "CardSchedule",
+           "card_schedule"]
 
 
 def make_beta_schedule(
@@ -154,3 +155,47 @@ class NsDiffSchedule:
             gx_term=f32(gx_term),
             posterior_variance=f32(posterior_variance),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class CardSchedule:
+    """Frozen CARD schedule of TMDM (all float32 ndarray, length T)."""
+
+    betas: np.ndarray
+    alphas: np.ndarray
+    alphas_cumprod: np.ndarray
+    alphas_bar_sqrt: np.ndarray
+    one_minus_alphas_bar_sqrt: np.ndarray
+    alphas_cumprod_prev: np.ndarray
+    posterior_variance: np.ndarray
+
+    @property
+    def num_timesteps(self) -> int:
+        return int(self.betas.shape[0])
+
+
+def card_schedule(
+    schedule: str = "linear",
+    num_timesteps: int = 100,
+    beta_start: float = 1e-4,
+    beta_end: float = 2e-2,
+) -> CardSchedule:
+    """Schedule used by TMDM (TMDM.py:52-77)."""
+    betas = make_beta_schedule(schedule, num_timesteps, beta_start, beta_end)
+    alphas = 1.0 - betas
+    acp = np.cumprod(alphas)
+    one_minus_abar_sqrt = np.sqrt(1.0 - acp)
+    if schedule == "cosine":
+        one_minus_abar_sqrt = one_minus_abar_sqrt * 0.9999
+    acp_prev = np.concatenate([[1.0], acp[:-1]])
+    posterior_variance = betas * (1.0 - acp_prev) / (1.0 - acp)
+    f32 = lambda x: np.asarray(x, dtype=np.float32)
+    return CardSchedule(
+        betas=f32(betas),
+        alphas=f32(alphas),
+        alphas_cumprod=f32(acp),
+        alphas_bar_sqrt=f32(np.sqrt(acp)),
+        one_minus_alphas_bar_sqrt=f32(one_minus_abar_sqrt),
+        alphas_cumprod_prev=f32(acp_prev),
+        posterior_variance=f32(posterior_variance),
+    )

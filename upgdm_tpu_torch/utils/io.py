@@ -6,7 +6,8 @@ Counterpart of ``upgdm_tpu/utils/io.py``. Contracts kept:
     named ``model_trained`` with a sibling ``model_trained.yaml``; the state
     dict is the flax-named flat dict (``utils/weights.py`` maps it onto the
     port's modules);
-  - simulation records: dict ``{ys_dynamic, ts_dynamic, tp_values/N_values}``.
+  - simulation records: dict ``{ys_dynamic, ts_dynamic, tp_values/N_values}``;
+  - prediction caches: a python list of per-window tensors.
 
 Array leaves are numpy on both sides, so either package loads the other's
 files.
@@ -14,7 +15,7 @@ files.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,6 +24,8 @@ import yaml
 __all__ = [
     "save_pt",
     "load_pt",
+    "save_tensor_list",
+    "load_tensor_list",
     "flatten_params",
     "unflatten_params",
     "save_checkpoint",
@@ -68,6 +71,18 @@ def load_pt(path, to_numpy: bool = True):
         return x
 
     return conv(obj)
+
+
+def save_tensor_list(data_list: List[np.ndarray], cache_path):
+    """Prediction-cache contract: a python list of tensors."""
+    save_pt([np.asarray(x) for x in data_list], cache_path)
+
+
+def load_tensor_list(cache_path) -> List[np.ndarray]:
+    data = load_pt(cache_path)
+    if not isinstance(data, list):
+        raise TypeError(f"cache file must contain a list of tensors: {cache_path}")
+    return data
 
 
 # ---------------------------------------------------------------------------
