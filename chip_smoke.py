@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (upgdm_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels]
 
 Builds the port's three CUDA kernels from ``upgdm_tpu_torch/csrc/`` (into
-``build/kernels/``), holds each kernel against its plain PyTorch twin on the
-card, drives the NsDiff sampling-MPV sweep at the bench geometry
-(``bench.py``: Node 30, W/P 100/100, 20 steps, 100 samples, d_model 512,
-e4/d2) and the TMDM sampling-MPV sweep at the model-comparison geometry
-(Node 30, W/P 100/100, label 50, 100 steps, 100 samples, d_model 64, e2/d1)
-through the port's entry points, runs the cache-first evaluation runner, and
-checks the trained SIS model of ``demo_fig1``. Every phase that fails exits
+``build/kernels/``) and fails on a register spill in the tensor-core kernels,
+holds each kernel against its plain PyTorch twin on the card (K1 and K3 over
+ragged row counts, feature widths 1, 2 and 4, edge-case rows and, element by
+element, at the sweeps' own row counts in both matmul types), drives
+the NsDiff sampling-MPV sweep at the bench geometry (``bench.py``: Node 30,
+W/P 100/100, 20 steps, 100 samples, d_model 512, e4/d2) and the TMDM
+sampling-MPV sweep at the model-comparison geometry (Node 30, W/P 100/100,
+label 50, 100 steps, 100 samples, d_model 64, e2/d1) through the port's entry
+points, holds each sweep's bf16 kernel chain to its float32 kernel chain at
+the MPV level, runs the cache-first evaluation runner, and checks the trained
+SIS model of ``demo_fig1``. Every phase that fails exits
 non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
-last line is ``{"ok": true, "device": {...}}``.
+last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
+kernel phases (build, K1, K2, K3 with their times): the short loop for work on
+a kernel.
 
 Imports nothing of JAX or of the JAX package.
 """
+import argparse
 import json
 import statistics
 import subprocess
@@ -50,10 +57,6 @@ TMDM_PARAM = dict(
 )
 M_TMDM = N_Z * T_CHUNK * NODE * (T_LABEL + PRED_LEN)  # rows per K3 call: 3.6 M
 
-# the card's published peaks (H100 SXM data sheet, dense)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
-
 SIS_MODEL = REPO / "demo_fig1/ews_results/model_compare/NsDiff/SIS"
 SIS_DATA = REPO / "demo_fig1/spdata_sde_SIS/barabasi_albert_12_0/SIS_dynamic_eta0.0001d0.5_increase.pt"
 
@@ -84,6 +87,33 @@ def make_windows(n_windows):
     return np.ascontiguousarray(traj[:, idx, :].transpose(1, 0, 2, 3))
 
 
+def host_s(fn):
+    """Host wall time of fn() ended by a device synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+# -- the step kernels K1 and K3 against their twins ------------------------------
+# bf16 bar: kernel and twin round the same operands to bf16 and sum exact
+# products in float32 in different orders, and the tensor-core arm's softplus
+# is good to ~3e-5 relative; an activation within that of a bf16 rounding
+# boundary rounds the other way (a 2^-8 relative step in one of 128 terms),
+# so the bf16 arm is held to 2e-3 and the float32 arm to 2e-5.
+TOL = {"float32": 2e-5, "bfloat16": 2e-3}
+RAGGED_M = (1, 63, 64, 65, 65536, 65537)
+WIDTHS = (1, 2, 4)
+CASES = ("random", "below", "above")
+N_STEPS = 20
+GATE_STEPS = (0, 7, N_STEPS - 1)
+# bar of check_series_branch, relative: see there
+SERIES_RTOL = 1e-3
+
+
 def cuda_ms(fn, reps=10, warmup=2):
     """Median device time of fn() over `reps` runs (CUDA events)."""
     import torch
@@ -103,36 +133,157 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def host_s(fn):
-    """Host wall time of fn() ended by a device synchronise."""
+def step_kernel(which):
+    """(denoiser class, weights_of, wrapper, twin, outputs as a tuple) of K1 or K3."""
+    from upgdm_tpu_torch.models.denoise import NsDiffDenoiser, TMDMDenoiser
+    from upgdm_tpu_torch.ops.kernels import fused_denoiser as k1, fused_tmdm as k3
+
+    if which == "k1":
+        return (NsDiffDenoiser, k1.denoiser_weights, k1.fused_denoiser_rows,
+                k1.fused_denoiser_rows_reference, tuple)
+    return (TMDMDenoiser, k3.tmdm_weights, k3.fused_tmdm_rows, k3.fused_tmdm_rows_reference,
+            lambda out: (out,))
+
+
+def edge_case(which, case, weights, gammas, gen, bias=14.0):
+    """(weights, gammas) for one kind of row. ``random`` keeps the module's
+    own; ``below`` / ``above`` put every pre-activation of the three hidden
+    layers below -8 / above +8: biases of -`bias` / +`bias`, gates in
+    [0.9, 1.1] and the three trunk matrices scaled by 0.1, so that the
+    products stay within ~3.5 of zero. The heads stay the module's own, with
+    one exception, K3 ``above``: the bar is absolute and K3 has no norm, so
+    an activation in [8, 16) has a bf16 step of 2^-4, and one that rounds the
+    other way in kernel and twin moves eps by 2^-4 x |W4|, which is 5.5e-3 at
+    the module's own |W4| <= 0.088; there W4 is scaled by 0.1 (5.5e-4)."""
     import torch
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, out
+    if case == "random":
+        return weights, gammas
+    w = list(weights)
+    for i in (0, 2, 4):
+        w[i] = w[i] * 0.1
+    for i in (1, 3, 5):
+        w[i] = torch.full_like(w[i], -bias if case == "below" else bias)
+    if which == "k3" and case == "above":
+        w[6] = w[6] * 0.1
+    g = tuple(0.9 + 0.2 * torch.rand(x.shape, generator=gen, device=x.device) for x in gammas)
+    return tuple(w), g
 
 
-def bound_ms(flops, nbytes, mm):
-    t_ops = flops / PEAK_FLOPS[mm] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def step_rows(which, M, Fdim, gen, dev):
+    """M rows of K1's [y_t, y0_hat, gx] (gx positive) or K3's [y_t, y0_hat]."""
+    import torch
+
+    x = torch.randn(M, 2 * Fdim, generator=gen, device=dev)
+    if which == "k1":
+        x = torch.cat([x, torch.rand(M, Fdim, generator=gen, device=dev) * 0.95 + 0.05], dim=1)
+    return x
 
 
-def k1_flops(M, F=1, H=128):
-    return 2.0 * M * (3 * F * H + 2 * H * H + 2 * H * F)
+def worst_err(name, got, want, tol, where):
+    """max |got - want| over the outputs; AssertionError if an output has the
+    wrong shape, is not finite or is further than `tol` from the twin's."""
+    import torch
+
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not torch.isfinite(a).all().item():
+            raise AssertionError(f"{name}: bad output at {where}")
+        worst = max(worst, (a - b).abs().max().item())
+    if worst > tol:
+        raise AssertionError(f"{name}: max|err| {worst} > {tol} at {where}")
+    return worst
 
 
-def k2_flops(M, T, F=1, H=128):
-    return 2.0 * M * (2 * F * H + T * (F * H + 2 * H * H + 2 * H * F))
+def check_step_kernel(which, dev, seed=2):
+    """K1 (``which="k1"``) or K3 (``"k3"``) against its twin over RAGGED_M x
+    WIDTHS x CASES (the module's own gates at GATE_STEPS for ``random``) in
+    both matmul types; returns {mm: max|err|} or raises AssertionError naming
+    the first case over TOL."""
+    import torch
+
+    from upgdm_tpu_torch.ops.kernels.fused_denoiser import denoiser_gammas, step_weights
+
+    cls, weights_of, rows, ref, tup = step_kernel(which)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.manual_seed(seed)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    with torch.no_grad():
+        for Fdim in WIDTHS:
+            den = cls(Fdim, N_STEPS).to(dev).eval()
+            for case in CASES:
+                for t in GATE_STEPS if case == "random" else (7,):
+                    W, G = edge_case(which, case, weights_of(den), denoiser_gammas(den, t), gen)
+                    kw = {mm: step_weights(W, getattr(torch, mm)) for mm in TOL}
+                    for M in RAGGED_M:
+                        x = step_rows(which, M, Fdim, gen, dev)
+                        for mm in TOL:
+                            got = tup(rows(x, G, kw[mm], matmul_dtype=mm))
+                            want = tup(ref(x, G, W, matmul_dtype=mm))
+                            err[mm] = max(err[mm], worst_err(
+                                which.upper(), got, want, TOL[mm],
+                                f"F={Fdim} M={M} {case} t={t} {mm}"))
+    return err
 
 
-def k3_flops(M, F=1, H=128):
-    return 2.0 * M * (2 * F * H + 2 * H * H + H * F)
+def check_series_branch(which, dev, seed=4):
+    """The bf16 arm's softplus on rows far below zero, held to a relative bar.
+
+    With every pre-activation at about -14 or -20 a softplus is e = 8e-7 or
+    2e-9. ``lg2(1 + e)`` alone would quantise e to the 1.2e-7 steps of 1 + e
+    (and give 0 at -20), which an absolute bar on eps cannot see; the series
+    branch of ``softplus_fast`` keeps e to ~3e-5 relative. The head here is
+    all ones with no bias, so eps is the sum of the row's 128 activations as
+    the product reads them (K1: of the normalised row). Kernel and twin then
+    differ by the softplus (3e-5), by float32 sums in another order (1e-6)
+    and by a bf16 rounding that falls the other way in a few of the 128 terms
+    (2^-8 / 128 = 3e-5 each): held to 1e-3 relative. A build without the
+    series branch is 2.3e-2 (K1) and 7.1e-2 (K3) off at -14 on the H100.
+    Returns the largest relative error; AssertionError over the bar."""
+    import torch
+
+    from upgdm_tpu_torch.ops.kernels.fused_denoiser import denoiser_gammas, step_weights
+
+    cls, weights_of, rows, ref, tup = step_kernel(which)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.manual_seed(seed)
+    worst = 0.0
+    with torch.no_grad():
+        for Fdim in WIDTHS:
+            den = cls(Fdim, N_STEPS).to(dev).eval()
+            for bias in (14.0, 20.0):
+                W, G = edge_case(which, "below", weights_of(den), denoiser_gammas(den, 7), gen,
+                                 bias=bias)
+                W = W[:6] + (torch.ones_like(W[6]), torch.zeros_like(W[7])) + W[8:]
+                kw = step_weights(W, torch.bfloat16)
+                x = step_rows(which, 65537, Fdim, gen, dev)
+                got = tup(rows(x, G, kw, matmul_dtype="bfloat16"))[0]
+                want = tup(ref(x, G, W, matmul_dtype="bfloat16"))[0]
+                rel = ((got - want).abs() / want.abs()).max().item()
+                if not rel <= SERIES_RTOL:  # also catches NaN
+                    raise AssertionError(f"{which.upper()}: rows at -{bias:g}: eps off the twin "
+                                         f"by {rel} relative > {SERIES_RTOL} (F={Fdim})")
+                worst = max(worst, rel)
+    return worst
 
 
-def main():
+def new_kernel_spills(build_log):
+    """ptxas lines of the tensor-core kernels that report a spill."""
+    bad, current = [], ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            current = line
+        elif ("spill" in line and "_mma_kernel" in current
+              and "0 bytes spill stores, 0 bytes spill loads" not in line):
+            bad.append(f"{current.strip()} :: {line.strip()}")
+    return bad
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
+    ap.add_argument("--kernels", action="store_true",
+                    help="stop after the kernel phases (build, K1, K2, K3)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -156,12 +307,10 @@ def main():
         fused_chain_rows, fused_chain_rows_reference, fused_nsdiff_chain, schedule_table,
     )
     from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
-        denoiser_gammas, denoiser_weights, fused_denoiser_rows,
-        fused_denoiser_rows_reference, kernel_weights,
+        denoiser_gammas, denoiser_weights, fused_denoiser_rows, step_weights,
     )
-    from upgdm_tpu_torch.ops.kernels.fused_tmdm import (
-        fused_tmdm_rows, fused_tmdm_rows_reference, tmdm_gammas, tmdm_weights,
-    )
+    from upgdm_tpu_torch.ops.kernels.fused_tmdm import fused_tmdm_rows, tmdm_gammas, tmdm_weights
+    from upgdm_tpu_torch.ops.kernels.roofline import bound_ms, k1_work, k2_work, k3_work
     from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
     from upgdm_tpu_torch.utils.io import load_tensor_list
     from upgdm_tpu_torch.ops.windows import sample_time_series, sliding_windows
@@ -171,14 +320,22 @@ def main():
     card = torch.cuda.get_device_name(0)
 
     # -- 1. device ------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else f"{card}, power limit not reported"
+    def nvidia_smi(fields, fmt="csv,noheader"):
+        out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
+                             capture_output=True, text=True, timeout=60).stdout.strip()
+        return out.splitlines()[0] if out else ""
+
+    smi_line = nvidia_smi("name,power.limit") or f"{card}, power limit not reported"
     print(smi_line, flush=True)
+    # the special-function term of the kernels' bounds runs at the SM clock
+    clock = nvidia_smi("clocks.max.sm", "csv,noheader,nounits")
+    require(clock.strip().isdigit(), "device", f"nvidia-smi gave no clocks.max.sm: {clock!r}")
+    sm_clock_hz = float(clock) * 1e6
     emit(phase="device", card=card, count=torch.cuda.device_count(), nvidia_smi=smi_line,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         sm_clock_mhz=float(clock), torch=torch.__version__, cuda=torch.version.cuda)
+
+    def bound(work, mm):
+        return bound_ms(*work, mm, sm_clock_hz)
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -187,47 +344,43 @@ def main():
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit(phase="build", card=smi_line, seconds=time.perf_counter() - t0, library=lib_path.name, ptxas=ptxas)
+    spills = new_kernel_spills(_build.build_log)
+    require(not spills, "build", f"register spills in the tensor-core kernels: {spills}")
+
+    def step_phase(which, weights, g, x):
+        """One step kernel's phase: the twin over ragged M, widths and edge
+        rows, the series branch, then wrapper against twin element by element
+        on the main path's x in both matmul types, and the times of both."""
+        _, _, rows, ref, tup = step_kernel(which)
+        try:
+            err = check_step_kernel(which, dev)
+            series_rel = check_series_branch(which, dev)
+            ms, plain_ms = {}, {}
+            for mm in TOL:
+                kw = step_weights(weights, getattr(torch, mm))
+                got = tup(rows(x, g, kw, matmul_dtype=mm))
+                want = tup(ref(x, g, weights, matmul_dtype=mm))
+                err[mm] = max(err[mm], worst_err(which.upper(), got, want, TOL[mm],
+                                                 f"the main path's {x.shape[0]} rows, {mm}"))
+                del got, want
+                ms[mm] = cuda_ms(lambda: rows(x, g, kw, matmul_dtype=mm))
+                plain_ms[mm] = cuda_ms(lambda: ref(x, g, weights, matmul_dtype=mm))
+        except AssertionError as exc:
+            fail(which, str(exc))
+        return err, series_rel, ms, plain_ms
 
     # -- 3. K1 against its plain twin ------------------------------------------
     torch.manual_seed(0)
     den = NsDiffDenoiser(1, STEPS).to(dev).eval()
     W = denoiser_weights(den)
-    k1_err = {"float32": 0.0, "bfloat16": 0.0}
-    # bf16 bar: kernel and twin round the same operands to bf16 and sum exact
-    # products in float32 in different orders; an activation within an ulp of
-    # a bf16 rounding boundary may round the other way (a 2^-8 step in one of
-    # 128 terms), so the bf16 arm is held to 2e-3 (float32 arm: 2e-5).
-    k1_tol = {"float32": 2e-5, "bfloat16": 2e-3}
     gen = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
-        for M in (65536, 65537):
-            x = torch.cat([torch.randn(M, 2, generator=gen, device=dev),
-                           torch.rand(M, 1, generator=gen, device=dev) * 0.95 + 0.05], dim=1)
-            for t in (0, 7, 19):
-                g = denoiser_gammas(den, t)
-                for mm in ("float32", "bfloat16"):
-                    e, s = fused_denoiser_rows(x, g, W, matmul_dtype=mm)
-                    e_r, s_r = fused_denoiser_rows_reference(x, g, W, matmul_dtype=mm)
-                    torch.cuda.synchronize()
-                    err = max((e - e_r).abs().max().item(), (s - s_r).abs().max().item())
-                    k1_err[mm] = max(k1_err[mm], err)
-                    require(torch.isfinite(e).all().item() and torch.isfinite(s).all().item(),
-                            "k1", f"non-finite output M={M} t={t} {mm}")
-                    require(err <= k1_tol[mm], "k1",
-                            f"max|err| {err} > {k1_tol[mm]} at M={M} t={t} {mm}")
-        x = torch.cat([torch.randn(M_MAIN, 2, generator=gen, device=dev),
-                       torch.rand(M_MAIN, 1, generator=gen, device=dev) * 0.95 + 0.05], dim=1)
-        g = denoiser_gammas(den, 7)
-        k1_ms, k1_plain_ms, k1_bound = {}, {}, {}
-        for mm in ("float32", "bfloat16"):
-            kw = kernel_weights(W, torch.bfloat16 if mm == "bfloat16" else torch.float32)
-            k1_ms[mm] = cuda_ms(lambda: fused_denoiser_rows(x, g, kw, matmul_dtype=mm))
-            k1_plain_ms[mm] = cuda_ms(
-                lambda: fused_denoiser_rows_reference(x, g, W, matmul_dtype=mm))
-            k1_bound[mm] = bound_ms(k1_flops(M_MAIN), 4 * M_MAIN * (3 + 2), mm)
+        x = step_rows("k1", M_MAIN, 1, gen, dev)
+        k1_err, k1_series, k1_ms, k1_plain_ms = step_phase("k1", W, denoiser_gammas(den, 7), x)
         del x
-    emit(phase="k1", card=smi_line, max_abs_err=k1_err, tol=k1_tol, rows=M_MAIN,
-         ms=k1_ms, plain_ms=k1_plain_ms,
+    k1_bound = {mm: bound(k1_work(M_MAIN), mm) for mm in TOL}
+    emit(phase="k1", card=smi_line, max_abs_err=k1_err, tol=TOL, series_rel_err=k1_series,
+         series_rtol=SERIES_RTOL, rows=M_MAIN, ms=k1_ms, plain_ms=k1_plain_ms,
          bound_ms={k: v[0] for k, v in k1_bound.items()},
          bound_by={k: v[1] for k, v in k1_bound.items()})
 
@@ -274,11 +427,13 @@ def main():
         require(mpv_rel <= 0.01, "k2", f"Philox MPV {mpv_k} vs twin {mpv_p}: {mpv_rel:.4%}")
         k2_ms, k2_plain_ms, k2_bound = {}, {}, {}
         for mm in ("float32", "bfloat16"):
+            # three timed calls after one warm-up: a call takes ~0.5 s (twin ~1 s)
             k2_ms[mm] = cuda_ms(lambda: fused_chain_rows(
-                y0r, gxr, tab, 5, tables, W, STEPS, matmul_dtype=mm))
+                y0r, gxr, tab, 5, tables, W, STEPS, matmul_dtype=mm), reps=3, warmup=1)
             k2_plain_ms[mm] = cuda_ms(lambda: fused_chain_rows_reference(
-                y0r, gxr, tab, tables, W, STEPS, matmul_dtype=mm, generator=tgen))
-            k2_bound[mm] = bound_ms(k2_flops(M_MAIN, STEPS), 4 * M_MAIN * 3, mm)
+                y0r, gxr, tab, tables, W, STEPS, matmul_dtype=mm, generator=tgen),
+                reps=3, warmup=1)
+            k2_bound[mm] = bound(k2_work(M_MAIN, STEPS), mm)
         del y0r, gxr, ens_p, ens_k
     emit(phase="k2", card=smi_line, max_abs_err=k2_err, mpv_kernel=mpv_k, mpv_twin=mpv_p,
          mpv_rel=mpv_rel, rows=M_MAIN, ms=k2_ms, plain_ms=k2_plain_ms,
@@ -286,42 +441,24 @@ def main():
          bound_by={k: v[1] for k, v in k2_bound.items()})
 
     # -- 5. K3 against its plain twin ------------------------------------------
-    k3_err = {"float32": 0.0, "bfloat16": 0.0}
-    k3_tol = k1_tol  # the same two bars, for the reason given at K1
     with torch.no_grad():
-        for Fdim in (1, 2):
-            tden = TMDMDenoiser(Fdim, T_STEPS + 1).to(dev).eval()
-            TW = tmdm_weights(tden)
-            for M in (65536, 65537):
-                x = torch.randn(M, 2 * Fdim, generator=gen, device=dev)
-                for t in (0, 50, 100):
-                    g = tmdm_gammas(tden, t)
-                    for mm in ("float32", "bfloat16"):
-                        e = fused_tmdm_rows(x, g, TW, matmul_dtype=mm)
-                        e_r = fused_tmdm_rows_reference(x, g, TW, matmul_dtype=mm)
-                        torch.cuda.synchronize()
-                        err = (e - e_r).abs().max().item()
-                        k3_err[mm] = max(k3_err[mm], err)
-                        require(e.shape == (M, Fdim) and torch.isfinite(e).all().item(), "k3",
-                                f"bad output F={Fdim} M={M} t={t} {mm}")
-                        require(err <= k3_tol[mm], "k3",
-                                f"max|err| {err} > {k3_tol[mm]} at F={Fdim} M={M} t={t} {mm}")
         tden = TMDMDenoiser(1, T_STEPS + 1).to(dev).eval()
-        TW = tmdm_weights(tden)
-        x = torch.randn(M_TMDM, 2, generator=gen, device=dev)
-        g = tmdm_gammas(tden, 50)
-        k3_ms, k3_plain_ms, k3_bound = {}, {}, {}
-        for mm in ("float32", "bfloat16"):
-            kw = kernel_weights(TW, torch.bfloat16 if mm == "bfloat16" else torch.float32)
-            k3_ms[mm] = cuda_ms(lambda: fused_tmdm_rows(x, g, kw, matmul_dtype=mm))
-            k3_plain_ms[mm] = cuda_ms(
-                lambda: fused_tmdm_rows_reference(x, g, TW, matmul_dtype=mm))
-            k3_bound[mm] = bound_ms(k3_flops(M_TMDM), 4 * M_TMDM * 3, mm)
+        x = step_rows("k3", M_TMDM, 1, gen, dev)
+        k3_err, k3_series, k3_ms, k3_plain_ms = step_phase(
+            "k3", tmdm_weights(tden), tmdm_gammas(tden, 50), x)
         del x
-    emit(phase="k3", card=smi_line, max_abs_err=k3_err, tol=k3_tol, rows=M_TMDM,
-         ms=k3_ms, plain_ms=k3_plain_ms,
+    k3_bound = {mm: bound(k3_work(M_TMDM), mm) for mm in TOL}
+    emit(phase="k3", card=smi_line, max_abs_err=k3_err, tol=TOL, series_rel_err=k3_series,
+         series_rtol=SERIES_RTOL, rows=M_TMDM, ms=k3_ms, plain_ms=k3_plain_ms,
          bound_ms={k: v[0] for k, v in k3_bound.items()},
          bound_by={k: v[1] for k, v in k3_bound.items()})
+    if args.kernels:
+        emit(stopped_after="k3")
+        return
+
+    def chunk_mpv(ens):
+        """Ensemble variance over the members (last axis), averaged."""
+        return ens.var(dim=-1, correction=0).mean().item()
 
     def zero_counts():
         fused_denoiser_rows.launches = 0
@@ -366,7 +503,17 @@ def main():
     excess = ((a - b).abs() - (1e-4 + 1e-4 * b.abs())).max().item()
     emit(phase="main_vs_plain", card=smi_line, max_abs_err=(a - b).abs().max().item(), tol="rtol 1e-4 atol 1e-4")
     require(excess <= 0, "main_vs_plain", f"K1 chain off the plain chain by {excess}")
-    del a, b
+    # the chunk's ensemble MPV from the bf16 kernel chain against the float32
+    # kernel chain's, same generator seed: within 1% (the JAX package's bar
+    # for its bf16 kernel, tests/test_pallas_denoiser.py::test_bf16_chain_mpv_parity)
+    c = model.sample_chain(y0h, gxh, torch.Generator(device=dev).manual_seed(9), N_Z)
+    mpv32, mpv16 = chunk_mpv(a), chunk_mpv(c)
+    mpv_rel_main = abs(mpv16 - mpv32) / mpv32
+    emit(phase="main_bf16_vs_f32", card=smi_line, mpv_float32=mpv32, mpv_bfloat16=mpv16,
+         rel=mpv_rel_main, tol=0.01)
+    require(mm_main == "bfloat16" and mpv_rel_main <= 0.01, "main_bf16_vs_f32",
+            f"{mm_main} chain MPV {mpv16} vs float32 {mpv32}: {mpv_rel_main:.4%}")
+    del a, b, c
 
     # -- 7. the K2 arm at full width ---------------------------------------------
     zero_counts()
@@ -427,7 +574,15 @@ def main():
          tol="rtol 1e-4 atol 1e-4")
     require(a.shape == (T_CHUNK * NODE, PRED_LEN, 1, N_Z) and excess <= 0, "tmdm_vs_plain",
             f"K3 chain off the plain chain by {excess}")
-    del a, b, y0t, embt
+    # bf16 kernel chain against the float32 kernel chain, as for NsDiff
+    c = tmdm.sample_chain(y0t, embt, torch.Generator(device=dev).manual_seed(9), N_Z)
+    mpv32, mpv16 = chunk_mpv(a), chunk_mpv(c)
+    mpv_rel_tmdm = abs(mpv16 - mpv32) / mpv32
+    emit(phase="tmdm_bf16_vs_f32", card=smi_line, mpv_float32=mpv32, mpv_bfloat16=mpv16,
+         rel=mpv_rel_tmdm, tol=0.01)
+    require(mpv_rel_tmdm <= 0.01, "tmdm_bf16_vs_f32",
+            f"bf16 chain MPV {mpv16} vs float32 {mpv32}: {mpv_rel_tmdm:.4%}")
+    del a, b, c, y0t, embt
 
     # -- 9. the cache-first runner on the card -------------------------------------
     with tempfile.TemporaryDirectory() as tmp:

@@ -8,32 +8,43 @@
 // with no normalisation between the layers and a single head. The timestep
 // gates gamma_t (three [128] rows) are gathered by the caller.
 //
-// Bound on the H100. At the TMDM sweep's size (M = 3.6 M rows, F = 1) the
-// step moves about 43 MB (x in, eps out) against about 2.4e11 FLOP (the two
-// 128x128 layers dominate), so it is bound by operations: ~0.013 ms of
-// memory time against ~3.6 ms at the 67 TFLOP/s float32 CUDA-core peak (or
-// ~0.24 ms at the 989 TFLOP/s bf16 tensor-core peak).
+// Bound on the H100, three terms. At the TMDM sweep's size (M = 3.6 M rows,
+// F = 1) the step moves about 43 MB (x in, eps out: ~0.013 ms at 3.35 TB/s),
+// does about 2.4e11 FLOP (the two 128x128 layers dominate: ~0.24 ms at the
+// 989 TFLOP/s bf16 tensor-core peak, ~3.6 ms at the 67 TFLOP/s float32
+// CUDA-core peak) and 3.6 M x 384 softplus of one exp and one log each
+// (~0.7 ms at 16 special-function results a clock on each of 132 SMs at
+// 1.98 GHz). So the bf16 arm is bound by special functions, the float32 arm
+// by operations.
 //
-// Design. Nothing but x and eps touches device memory. A persistent block
-// keeps W2 and W3 in shared memory for its whole life and walks row tiles of
-// 32 rows per group of 128 threads; each thread owns one hidden unit and keeps
-// the tile's 32 pre-activations in registers (32 independent FMA chains),
-// reading the layer's input rows as shared-memory broadcasts. Without the
-// L2 norm of the NsDiff trunk a layer needs no reduction across threads: the
-// gated softplus goes straight to the shared row buffer, with one barrier of
-// the group before the store (every read of the buffer is done) and one after
-// it (the rows are complete). Only the F-wide head reduces over the 128
-// units (warp shuffles, then four partials in shared memory). The shared
-// memory plan holds what this kernel has and no more: a 2F-row W1, no sigma
-// head, no norm scratch. The products run on the float32 CUDA cores, also for
-// the bf16 arm, whose operands are rounded to bf16 exactly as the TPU kernel
-// rounds them; moving the two 128x128 products onto the tensor cores is the
-// next step toward the bound. Ragged last tiles are masked, not padded.
+// Design. Nothing but x and eps touches device memory, in either arm.
+//  * bfloat16 matmuls (the arm the sweeps use): fused_tmdm_mma_kernel on the
+//    tensor-core trunk of trunk_mma.cuh. A block is four warpgroups that share
+//    the staged weights; each walks tiles of 64 rows of its own. W2 and W3
+//    stay in shared memory in the order wgmma reads; activations chain from
+//    one product's accumulators into the next product's A operand in
+//    registers; the head is a dot product over the thread's 32 columns and
+//    two quad shuffles; lane q of a quad stores feature q. While one
+//    warpgroup waits on its products the others run their softplus bands.
+//  * float32 matmuls (the parity arm): fused_tmdm_kernel on the float32 CUDA
+//    cores. A persistent block keeps W2 and W3 in shared memory and walks
+//    tiles of 32 rows per group of 128 threads; each thread owns one hidden
+//    unit, keeps the tile's pre-activations in registers and reads a layer's
+//    input rows as shared-memory broadcasts, with one barrier of the group
+//    before the row buffer is overwritten and one after. The head reduces
+//    over the 128 units with warp shuffles and four partials in shared memory.
+// Ragged last tiles are masked, not padded.
 #include "denoiser_trunk.cuh"
+#include "trunk_mma.cuh"
 
 namespace upgdm {
 
-// Shared-memory plan of K3: the weights once per block, then G workspaces.
+static_assert(MAX_F <= 4, "a quad of lanes stores one row's F outputs");
+
+// ---- float32 arm: CUDA cores -----------------------------------------------------
+
+// Shared-memory plan of the float32 arm: the weights once per block, then G
+// workspaces.
 template <typename WT>
 struct TmdmPlan {
   size_t w2, w3, w1, w4, groups, group_bytes, total;
@@ -180,19 +191,89 @@ static int launch_tmdm(const float* x, long long M, int F, const float* g1, cons
   return (int)cudaGetLastError();
 }
 
+// ---- bfloat16 arm: tensor-core trunk ---------------------------------------------
+
+// One block of four warpgroups per SM: every feature width fits 128 registers
+// a thread without spills (ptxas -v).
+template <int F>
+__global__ void __launch_bounds__(128 * mma::MAX_WGS, 1)
+fused_tmdm_mma_kernel(const float* __restrict__ x, long long M,
+                      const float* __restrict__ g1, const float* __restrict__ g2,
+                      const float* __restrict__ g3, const __nv_bfloat16* __restrict__ W1,
+                      const float* __restrict__ b1, const uint4* __restrict__ W2t,
+                      const float* __restrict__ b2, const uint4* __restrict__ W3t,
+                      const float* __restrict__ b3, const __nv_bfloat16* __restrict__ W4,
+                      const float* __restrict__ b4, float* __restrict__ eps_out) {
+  constexpr int IN = 2 * F;
+  using S = mma::Smem<IN, F>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = mma::align_1024(smem_raw);
+  float* w4 = reinterpret_cast<float*>(smem + S::heads);
+  mma::stage_head<F>(w4, W4);
+  mma::stage_trunk<IN, F>(smem, W1, W2t, W3t, g1, b1, g2, b2, g3, b3);
+
+  const mma::Walk walk;
+  const int q = walk.q;
+  const int tiles = (int)((M + mma::TILE - 1) / mma::TILE);
+
+  float acc[mma::ACC];
+  for (int tile = walk.first; tile < tiles; tile += walk.stride) {
+    const long long r0 = (long long)tile * mma::TILE + walk.row;
+    mma::prefetch_rows<IN>(x, M, r0 + (long long)walk.stride * mma::TILE, q);
+    mma::trunk<IN, F, false>(acc, x, M, r0, smem, q);
+    float o0, o1;
+    mma::head<F>(acc, w4, q, o0, o1);
+    if (q < F) {
+      if (r0 < M) eps_out[r0 * F + q] = o0 + b4[q];
+      if (r0 + 8 < M) eps_out[(r0 + 8) * F + q] = o1 + b4[q];
+    }
+  }
+}
+
+template <int F>
+static int launch_tmdm_mma(const float* x, long long M, const float* g1, const float* g2,
+                           const float* g3, const void* W1, const float* b1, const void* W2t,
+                           const float* b2, const void* W3t, const float* b3, const void* W4,
+                           const float* b4, float* eps, cudaStream_t stream) {
+  auto kernel = fused_tmdm_mma_kernel<F>;
+  constexpr size_t smem = mma::Smem<2 * F, F>::total;
+  int grid = 0;
+  const int err =
+      mma::configure(kernel, mma::MAX_WGS, smem, (M + mma::TILE - 1) / mma::TILE, &grid);
+  if (err != (int)cudaSuccess) return err;
+  kernel<<<grid, 128 * mma::MAX_WGS, smem, stream>>>(
+      x, M, g1, g2, g3, static_cast<const __nv_bfloat16*>(W1), b1,
+      static_cast<const uint4*>(W2t), b2, static_cast<const uint4*>(W3t), b3,
+      static_cast<const __nv_bfloat16*>(W4), b4, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace upgdm
 
-// C interface (ctypes). bf16 != 0 selects bf16 weight matrices (W1..W4);
-// everything else is float32. Returns cudaGetLastError() after the launch.
+// C interface (ctypes). bf16 != 0 selects the tensor-core arm: W1 [2F, 128]
+// and W4 [128, F] are bf16 and W2, W3 are bf16 in the tiled B-operand order of
+// trunk_mma.cuh (ops/kernels/fused_denoiser.py::tile_b_operand). Otherwise all
+// four matrices are float32 [in, out]. Everything else is float32. Returns
+// cudaGetLastError() after the launch.
 extern "C" int upgdm_fused_tmdm(const float* x, long long M, int F, const float* g1,
                                 const float* g2, const float* g3, const void* W1,
                                 const float* b1, const void* W2, const float* b2,
                                 const void* W3, const float* b3, const void* W4,
                                 const float* b4, float* eps, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return upgdm::launch_tmdm<__nv_bfloat16>(x, M, F, g1, g2, g3, W1, b1, W2, b2, W3, b3, W4,
-                                             b4, eps, st);
-  return upgdm::launch_tmdm<float>(x, M, F, g1, g2, g3, W1, b1, W2, b2, W3, b3, W4, b4, eps,
-                                   st);
+  if (!bf16)
+    return upgdm::launch_tmdm<float>(x, M, F, g1, g2, g3, W1, b1, W2, b2, W3, b3, W4, b4, eps,
+                                     st);
+  if (M < 0) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+#define UPGDM_TMDM_MMA(N) \
+  upgdm::launch_tmdm_mma<N>(x, M, g1, g2, g3, W1, b1, W2, b2, W3, b3, W4, b4, eps, st)
+  switch (F) {
+    case 1: return UPGDM_TMDM_MMA(1);
+    case 2: return UPGDM_TMDM_MMA(2);
+    case 3: return UPGDM_TMDM_MMA(3);
+    case 4: return UPGDM_TMDM_MMA(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef UPGDM_TMDM_MMA
 }

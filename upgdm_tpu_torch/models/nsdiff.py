@@ -31,7 +31,7 @@ from ..ops.kernels.fused_denoiser import (
     denoiser_gammas,
     denoiser_weights,
     fused_denoiser_rows,
-    kernel_weights,
+    step_weights,
 )
 from ..ops.schedules import NsDiffSchedule
 from .base import EPS, DiffusionWrapperBase
@@ -148,7 +148,9 @@ class NsDiffModel(DiffusionWrapperBase):
             mm = self.net_param.get(
                 "sampling_matmul_dtype", self.net_param.get("sampling_dtype", "bfloat16"))
             act = self.net_param.get("sampling_act_dtype", "float32")
-            kw = kernel_weights(denoiser_weights(d), check_dtypes(mm, act))
+            kw = denoiser_weights(d)
+            if y0_rows.is_cuda:  # laid out once for the chain's launches
+                kw = step_weights(kw, check_dtypes(mm, act))
             # x = [y_t, y0_hat, gx] rows; the y0_hat/gx columns are written once
             x = torch.empty(y0_rows.numel() // Fdim, 3 * Fdim, device=y0_rows.device)
             x[:, Fdim:2 * Fdim] = y0_rows.reshape(-1, Fdim)

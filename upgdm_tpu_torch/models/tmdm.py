@@ -32,7 +32,7 @@ import torch
 import yaml
 
 from ..ops import diffusion as D
-from ..ops.kernels.fused_denoiser import check_dtypes, kernel_weights
+from ..ops.kernels.fused_denoiser import check_dtypes, step_weights
 from ..ops.kernels.fused_tmdm import fused_tmdm_rows, tmdm_gammas, tmdm_weights
 from ..ops.schedules import card_schedule
 from .base import DiffusionWrapperBase
@@ -139,7 +139,9 @@ class TMDMModel(DiffusionWrapperBase):
             self.sampling_dtype()  # validates sampling_dtype
             mm = self.net_param.get(
                 "sampling_matmul_dtype", self.net_param.get("sampling_dtype", "bfloat16"))
-            kw = kernel_weights(tmdm_weights(d), check_dtypes(mm, "float32"))
+            kw = tmdm_weights(d)
+            if y0_rows.is_cuda:  # laid out once for the chain's launches
+                kw = step_weights(kw, check_dtypes(mm, "float32"))
             # x = [y_t, y0_hat] rows; the y0_hat columns are written once
             x = torch.empty(y0_rows.numel() // Fdim, 2 * Fdim, device=y0_rows.device)
             x[:, Fdim:] = y0_rows.reshape(-1, Fdim)

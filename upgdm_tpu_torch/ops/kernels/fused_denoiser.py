@@ -12,6 +12,12 @@ operands to bf16 and accumulates in float32; activations stay float32.
 
 ``fused_denoiser_rows`` launches the CUDA kernel for CUDA tensors and runs
 ``fused_denoiser_rows_reference`` (the plain PyTorch twin) for CPU tensors.
+On the card ``"bfloat16"`` is the tensor-core kernel (``csrc/trunk_mma.cuh``)
+and ``"float32"`` the CUDA-core kernel. On the card the wrappers take what
+``step_weights`` made of the flax-layout tuple, once for many launches: for
+bf16 it lays W2 and W3 out in the order the tensor-core product reads them
+(``tile_b_operand``). The plain twins, and so the wrappers on CPU tensors,
+take the flax-layout tuple itself.
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ __all__ = [
     "denoiser_gammas",
     "check_dtypes",
     "kernel_weights",
+    "step_weights",
+    "tile_b_operand",
+    "untile_b_operand",
 ]
 
 HIDDEN = 128
@@ -106,18 +115,70 @@ def _check_mat(name, t, shape, dtype, device):
 
 
 def kernel_weights(weights, mm: torch.dtype) -> Tuple[torch.Tensor, ...]:
-    """Weights as the CUDA kernels take them: contiguous matrices in the
-    matmul dtype (bf16 rounding is round-to-nearest-even), float32 biases."""
+    """Weights as the CUDA-core kernels (K2, the float32 arms of K1 and K3)
+    take them: contiguous matrices in the matmul dtype (bf16 rounding is
+    round-to-nearest-even), float32 biases."""
     return tuple(
         (w.to(mm) if i % 2 == 0 else w.float()).contiguous() for i, w in enumerate(weights)
     )
+
+
+_KBLOCK = 64  # k values (128 bytes of bf16) in one swizzle row
+TILED_SHAPE = (HIDDEN // _KBLOCK, HIDDEN, _KBLOCK)
+
+
+def _swizzle(t: torch.Tensor) -> torch.Tensor:
+    """[n, k-block, chunk, 8] with chunk c of row n moved to c ^ (n % 8); the
+    move is its own inverse."""
+    n = torch.arange(HIDDEN, device=t.device)
+    idx = torch.arange(8, device=t.device)[None, :] ^ (n % 8)[:, None]  # [n, chunk]
+    return t.gather(2, idx[:, None, :, None].expand_as(t))
+
+
+def tile_b_operand(W: torch.Tensor) -> torch.Tensor:
+    """A hidden matrix W [128 in, 128 out] (flax layout) in the order the
+    tensor-core kernels stage it: ``[2, 128, 64]`` = (k block, output n, k in
+    block), K-major with the 128-byte swizzle of ``csrc/trunk_mma.cuh`` (the
+    16-byte chunk c of row n sits at chunk ``c ^ (n % 8)``). Element (k, n)
+    lands at flat offset ``(k // 64) * 8192 + n * 64 + (((k % 64) // 8) ^
+    (n % 8)) * 8 + k % 8``."""
+    if tuple(W.shape) != (HIDDEN, HIDDEN):
+        raise ValueError(f"tile_b_operand: expected [{HIDDEN}, {HIDDEN}], got {tuple(W.shape)}")
+    t = W.t().reshape(HIDDEN, HIDDEN // _KBLOCK, 8, 8)  # [n, k block, chunk, 8]
+    return _swizzle(t).permute(1, 0, 2, 3).reshape(TILED_SHAPE).contiguous()
+
+
+def untile_b_operand(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``tile_b_operand``: the flax-layout matrix [in, out]."""
+    if tuple(T.shape) != TILED_SHAPE:
+        raise ValueError(f"untile_b_operand: expected {TILED_SHAPE}, got {tuple(T.shape)}")
+    t = T.reshape(HIDDEN // _KBLOCK, HIDDEN, 8, 8).permute(1, 0, 2, 3)
+    return _swizzle(t).reshape(HIDDEN, HIDDEN).t().contiguous()
+
+
+def step_weights(weights, mm: torch.dtype) -> Tuple[torch.Tensor, ...]:
+    """The one preparation of a flax-layout weight tuple for the step kernels
+    K1 and K3 on the card: ``kernel_weights`` and, for bf16, W2 and W3
+    (positions 2 and 4) tiled for the tensor-core product. A tuple already
+    prepared comes back unchanged."""
+    out = list(kernel_weights(weights, mm))
+    if mm == torch.bfloat16:
+        for i in (2, 4):
+            if tuple(out[i].shape) != TILED_SHAPE:
+                out[i] = tile_b_operand(out[i])
+    return tuple(out)
+
+
+def _hidden_shape(mm: torch.dtype):
+    return TILED_SHAPE if mm == torch.bfloat16 else (HIDDEN, HIDDEN)
 
 
 def fused_denoiser_rows(x: torch.Tensor, gammas: Sequence[torch.Tensor], weights,
                         matmul_dtype: str = "float32", act_dtype: str = "float32"):
     """x: [M, 3F] float32 rows -> (eps [M, F], sigma [M, F]) float32.
 
-    CUDA tensors launch K1; CPU tensors run the plain twin.
+    CUDA tensors launch K1 on ``weights`` as ``step_weights`` prepared them;
+    CPU tensors run the plain twin on the flax-layout tuple.
     """
     if x.device.type == "cpu":
         return fused_denoiser_rows_reference(x, gammas, weights, matmul_dtype, act_dtype)
@@ -131,15 +192,15 @@ def fused_denoiser_rows(x: torch.Tensor, gammas: Sequence[torch.Tensor], weights
     if in_dim != 3 * Fdim or not 1 <= Fdim <= MAX_F:
         raise ValueError(f"x: expected 3F columns with 1 <= F <= {MAX_F}, got {in_dim}")
     dev = x.device
-    W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = kernel_weights(weights, mm)
+    W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = weights
     g1, g2, g3 = (g.float().contiguous() for g in gammas)
     for name, g in (("g1", g1), ("g2", g2), ("g3", g3), ("b1", b1), ("b2", b2), ("b3", b3)):
         _check_vec(name, g, HIDDEN, dev)
     _check_vec("b4", b4, Fdim, dev)
     _check_vec("bs", bs, Fdim, dev)
     _check_mat("W1", W1, (in_dim, HIDDEN), mm, dev)
-    _check_mat("W2", W2, (HIDDEN, HIDDEN), mm, dev)
-    _check_mat("W3", W3, (HIDDEN, HIDDEN), mm, dev)
+    _check_mat("W2", W2, _hidden_shape(mm), mm, dev)
+    _check_mat("W3", W3, _hidden_shape(mm), mm, dev)
     _check_mat("W4", W4, (HIDDEN, Fdim), mm, dev)
     _check_mat("Ws", Ws, (HIDDEN, Fdim), mm, dev)
     eps = torch.empty((M, Fdim), dtype=torch.float32, device=dev)
@@ -170,8 +231,11 @@ def fused_nsdiff_denoiser(denoiser, y_t, y_0_hat, g_x, t: int,
     lead = x.shape[:-1]
     Fdim = y_t.shape[-1]
     rows = x.reshape(-1, x.shape[-1]).float().contiguous()
+    weights = denoiser_weights(denoiser)
+    if rows.is_cuda:
+        weights = step_weights(weights, check_dtypes(matmul_dtype, act_dtype))
     eps, sigma = fused_denoiser_rows(
-        rows, denoiser_gammas(denoiser, t), denoiser_weights(denoiser),
+        rows, denoiser_gammas(denoiser, t), weights,
         matmul_dtype=matmul_dtype, act_dtype=act_dtype,
     )
     return eps.reshape(*lead, Fdim), sigma.reshape(*lead, Fdim)

@@ -14,7 +14,9 @@ default, as in the JAX package) rounds both dot operands to bf16 and
 accumulates in float32; gates, biases and softplus stay float32.
 
 ``fused_tmdm_rows`` launches the CUDA kernel for CUDA tensors and runs
-``fused_tmdm_rows_reference`` (the plain PyTorch twin) for CPU tensors.
+``fused_tmdm_rows_reference`` (the plain PyTorch twin) for CPU tensors. On
+the card ``"bfloat16"`` is the tensor-core kernel (``csrc/trunk_mma.cuh``)
+and ``"float32"`` the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ from .fused_denoiser import (
     _check_mat,
     _check_vec,
     _dot,
+    _hidden_shape,
     check_dtypes,
     denoiser_gammas,
-    kernel_weights,
+    step_weights,
 )
 
 __all__ = [
@@ -76,7 +79,8 @@ def fused_tmdm_rows(x: torch.Tensor, gammas: Sequence[torch.Tensor], weights,
                     matmul_dtype: str = "bfloat16") -> torch.Tensor:
     """x: [M, 2F] float32 rows of concat(y_t, y0_hat) -> eps [M, F] float32.
 
-    CUDA tensors launch K3; CPU tensors run the plain twin.
+    CUDA tensors launch K3 on ``weights`` as ``step_weights`` prepared them;
+    CPU tensors run the plain twin on the flax-layout tuple.
     """
     if x.device.type == "cpu":
         return fused_tmdm_rows_reference(x, gammas, weights, matmul_dtype)
@@ -90,14 +94,14 @@ def fused_tmdm_rows(x: torch.Tensor, gammas: Sequence[torch.Tensor], weights,
     if in_dim != 2 * Fdim or not 1 <= Fdim <= MAX_F:
         raise ValueError(f"x: expected 2F columns with 1 <= F <= {MAX_F}, got {in_dim}")
     dev = x.device
-    W1, b1, W2, b2, W3, b3, W4, b4 = kernel_weights(weights, mm)
+    W1, b1, W2, b2, W3, b3, W4, b4 = weights
     g1, g2, g3 = (g.float().contiguous() for g in gammas)
     for name, g in (("g1", g1), ("g2", g2), ("g3", g3), ("b1", b1), ("b2", b2), ("b3", b3)):
         _check_vec(name, g, HIDDEN, dev)
     _check_vec("b4", b4, Fdim, dev)
     _check_mat("W1", W1, (in_dim, HIDDEN), mm, dev)
-    _check_mat("W2", W2, (HIDDEN, HIDDEN), mm, dev)
-    _check_mat("W3", W3, (HIDDEN, HIDDEN), mm, dev)
+    _check_mat("W2", W2, _hidden_shape(mm), mm, dev)
+    _check_mat("W3", W3, _hidden_shape(mm), mm, dev)
     _check_mat("W4", W4, (HIDDEN, Fdim), mm, dev)
     eps = torch.empty((M, Fdim), dtype=torch.float32, device=dev)
     lib = _build.load_library()
@@ -125,6 +129,8 @@ def fused_tmdm_denoiser(denoiser, y_t, y_0_hat, t: int, matmul_dtype: str = "bfl
     lead = x.shape[:-1]
     Fdim = y_t.shape[-1]
     rows = x.reshape(-1, x.shape[-1]).float().contiguous()
-    eps = fused_tmdm_rows(rows, tmdm_gammas(denoiser, t), tmdm_weights(denoiser),
-                          matmul_dtype=matmul_dtype)
+    weights = tmdm_weights(denoiser)
+    if rows.is_cuda:
+        weights = step_weights(weights, check_dtypes(matmul_dtype, "float32"))
+    eps = fused_tmdm_rows(rows, tmdm_gammas(denoiser, t), weights, matmul_dtype=matmul_dtype)
     return eps.reshape(*lead, Fdim)
