@@ -7,8 +7,11 @@ Builds the port's three CUDA kernels from ``upgdm_tpu_torch/csrc/`` (into
 ``build/kernels/``) and fails on a register spill in the tensor-core kernels,
 holds each kernel against its plain PyTorch twin on the card (K1 and K3 over
 ragged row counts, feature widths 1, 2 and 4, edge-case rows and, element by
-element, at the sweeps' own row counts in both matmul types), drives
-the NsDiff sampling-MPV sweep at the bench geometry (``bench.py``: Node 30,
+element, at the sweeps' own row counts in both matmul types; K2 over the same
+row counts and widths with and without ``use_gx_directly``, noise-free in both
+matmul types and per sample on its own Philox normals, against a chain of K1
+launches, at 100 steps, at two launch shapes and, element by element, at the
+sweep's own row count), drives the NsDiff sampling-MPV sweep at the bench geometry (``bench.py``: Node 30,
 W/P 100/100, 20 steps, 100 samples, d_model 512, e4/d2) and the TMDM
 sampling-MPV sweep at the model-comparison geometry (Node 30, W/P 100/100,
 label 50, 100 steps, 100 samples, d_model 64, e2/d1) through the port's entry
@@ -267,6 +270,176 @@ def check_series_branch(which, dev, seed=4):
     return worst
 
 
+# -- the chain kernel K2 against its twin ------------------------------------------
+# float32, noise-free: the JAX package's own bar for its chain kernel
+# (tests/test_chain_resident.py). With noise, per sample on the same Philox
+# normals: the K1 chain's bar against the plain chain (float32 on both sides,
+# sums in another order, carried through the steps).
+CHAIN_F32 = {"rtol": 2e-5, "atol": 2e-6}
+CHAIN_NOISE = {"rtol": 1e-4, "atol": 1e-4}
+
+
+def chain_error_weight(tab, gx_max):
+    """sum over t of |d y_0 / d eps_t| for a noise-free chain on the [7, T]
+    schedule table, at sigma_y0 = gx = gx_max (float64). eps_t enters y_{t-1}
+    with weight gamma_0 sqrt(noise_var) / sqrt(abar_t) (sqrt(noise_var) /
+    sqrt(abar_0) at t = 0), and y_{t-1} passes to y_{t-2} with gamma_0 /
+    sqrt(abar) + gamma_1; the trunk's own dependence on y is left out.
+
+    The bar of the bf16 arm follows from it: every step's eps may be off the
+    twin's by K1's bar TOL["bfloat16"] (same trunk arithmetic: the same
+    operands rounded to bf16, summed in another order, the approximate
+    softplus), so y_0 is held to TOL["bfloat16"] x this weight: 0.86 at 20
+    steps and 2.6 at 100 for gx <= 1, i.e. 1.7e-3 and 5.2e-3."""
+    import numpy as np
+
+    a, bt, bb, bt_m1, bb_m1, acp_prev, om = np.asarray(tab, np.float64)
+    sqrt_abar = np.sqrt(1.0 - om * om)
+    s1 = (1.0 - a) ** 2 * gx_max + a * (1.0 - a) * gx_max
+    s2 = (bb_m1 - bt_m1) * gx_max + bt_m1 * gx_max
+    denom = a * s2 + s1
+    g0, g1 = np.sqrt(acp_prev) * s1 / denom, np.sqrt(a) * s2 / denom
+    by_eps = np.sqrt(bb * gx_max) / sqrt_abar  # noise_var at sigma_y0 = gx is bb gx
+    by_eps[1:] *= g0[1:]
+    onward = g0 / sqrt_abar + g1
+    onward[0] = 1.0
+    return float(sum(by_eps[t] * np.prod(onward[1:t]) for t in range(len(a))))
+
+
+def chain_setup(Fdim, T, dev):
+    """(denoiser, flax-layout weights, gate tables, schedule, its [7, T] table on dev)."""
+    import torch
+
+    from upgdm_tpu_torch.models.denoise import NsDiffDenoiser
+    from upgdm_tpu_torch.ops.kernels.chain_resident import schedule_table
+    from upgdm_tpu_torch.ops.kernels.fused_denoiser import denoiser_weights
+    from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
+
+    den = NsDiffDenoiser(Fdim, T).to(dev).eval()
+    tables = tuple(e.detach() for e in (den.lin1.embed, den.lin2.embed, den.lin3.embed))
+    sched = NsDiffSchedule.create("linear", T, 1e-4, 2e-2)
+    return den, denoiser_weights(den), tables, sched, torch.as_tensor(schedule_table(sched),
+                                                                      device=dev)
+
+
+def chain_rows(M, Fdim, gen, dev):
+    """M rows of (y0_hat, gx) with gx in [0.05, 1]."""
+    import torch
+
+    y0 = torch.randn(M, Fdim, generator=gen, device=dev) * 0.5 + 1.0
+    return y0, torch.rand(M, Fdim, generator=gen, device=dev) * 0.95 + 0.05
+
+
+def off_by(got, want, rtol, atol):
+    """max of |got - want| - (atol + rtol |want|): positive when over the bar."""
+    return ((got - want).abs() - (atol + rtol * want.abs())).max().item()
+
+
+def k1_chain_zero_noise(den, y0, gx, sched, mm):
+    """The noise-free chain as T launches of K1 through ``nsdiff_p_sample_loop``
+    (zeros through its ``noise`` seam): K2's trunk arithmetic, launch by launch."""
+    import torch
+
+    from upgdm_tpu_torch.ops.diffusion import nsdiff_p_sample_loop, schedule_on
+    from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
+        denoiser_gammas, denoiser_weights, fused_denoiser_rows, step_weights,
+    )
+
+    M, Fdim = y0.shape
+    kw = step_weights(denoiser_weights(den), getattr(torch, mm))
+    x = torch.cat([y0, y0, gx], dim=1)
+
+    def model_fn(y, t):
+        x[:, :Fdim] = y
+        return fused_denoiser_rows(x, denoiser_gammas(den, t), kw, matmul_dtype=mm)
+
+    zeros = [torch.zeros_like(y0)] * sched.num_timesteps
+    return nsdiff_p_sample_loop(model_fn, y0, gx, schedule_on(sched, y0.device), noise=zeros)
+
+
+def check_chain_kernel(dev, seed=6):
+    """K2 against its twin, ``fused_chain_rows_reference``. Noise-free over
+    RAGGED_M x WIDTHS x ``use_gx_directly``: float32 at CHAIN_F32, bf16 at
+    TOL["bfloat16"] x ``chain_error_weight``. At 65,537 rows: the float32 arm
+    with noise on against the twin on the same Philox normals, per sample at
+    CHAIN_NOISE; the bf16 arm likewise with the heads fixed, so that only its
+    draws and posterior arithmetic show; both arms at two launch shapes under
+    one seed (shared rows bit-equal); the bf16 arm against a chain of K1
+    launches at its bar; and a 100-step chain in both arms. Returns the
+    largest errors; AssertionError names the first case over its bar."""
+    import torch
+
+    from upgdm_tpu_torch.ops.kernels.chain_resident import (
+        fused_chain_rows, fused_chain_rows_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.manual_seed(seed)
+    err = {"float32": 0.0, "bfloat16": 0.0, "float32_noise": 0.0, "bfloat16_noise_stream": 0.0,
+           "bfloat16_vs_k1_chain": 0.0, "float32_T100": 0.0, "bfloat16_T100": 0.0}
+
+    def held(name, key, got, want, rtol, atol, where):
+        if got.shape != want.shape or not torch.isfinite(got).all().item():
+            raise AssertionError(f"K2 {name}: bad output at {where}")
+        over = off_by(got, want, rtol, atol)
+        if over > 0:
+            raise AssertionError(f"K2 {name}: off rtol {rtol} / atol {atol} by {over} at {where}")
+        err[key] = max(err[key], (got - want).abs().max().item())
+
+    with torch.no_grad():
+        for T in (N_STEPS, 100):
+            for Fdim in WIDTHS if T == N_STEPS else (1,):
+                den, W, tables, sched, tab = chain_setup(Fdim, T, dev)
+                bar16 = TOL["bfloat16"] * chain_error_weight(tab.cpu().numpy(), 1.0)
+                err[f"bfloat16_bar_T{T}"] = bar16
+                sfx = "" if T == N_STEPS else "_T100"
+                for use_gx in (False, True):
+                    for M in RAGGED_M if T == N_STEPS else (65537,):
+                        y0, gx = chain_rows(M, Fdim, gen, dev)
+                        where = f"F={Fdim} M={M} T={T} use_gx_directly={use_gx}"
+                        for mm, rtol, atol in (("float32", CHAIN_F32["rtol"], CHAIN_F32["atol"]),
+                                               ("bfloat16", 0.0, bar16)):
+                            if T == 100 and mm == "float32":  # five times the steps
+                                rtol, atol = CHAIN_NOISE["rtol"], CHAIN_NOISE["atol"]
+                            got = fused_chain_rows(y0, gx, tab, 0, tables, W, T, matmul_dtype=mm,
+                                                   noise_mode="zero", use_gx_directly=use_gx)
+                            want = fused_chain_rows_reference(
+                                y0, gx, tab, tables, W, T, matmul_dtype=mm, noise_mode="zero",
+                                use_gx_directly=use_gx)
+                            held(f"{mm} noise-free", mm + sfx, got, want, rtol, atol, where)
+                if T != N_STEPS:
+                    continue
+                # y0, gx: the last 65,537 rows. Noise on, per sample
+                got = fused_chain_rows(y0, gx, tab, 5, tables, W, T, matmul_dtype="float32")
+                want = fused_chain_rows_reference(y0, gx, tab, tables, W, T,
+                                                  matmul_dtype="float32", noise="philox", seed=5)
+                held("float32 with Philox noise", "float32_noise", got, want,
+                     CHAIN_NOISE["rtol"], CHAIN_NOISE["atol"], f"F={Fdim}")
+                # the bf16 arm's own draws, per sample: with W4, b4 and Ws at zero
+                # eps is 0 and sigma is softplus(bs) whatever the trunk rounds, so
+                # the chain is the posterior arithmetic on the normals alone
+                Wz = W[:6] + (torch.zeros_like(W[6]), torch.zeros_like(W[7]),
+                              torch.zeros_like(W[8]), W[9])
+                got = fused_chain_rows(y0, gx, tab, 5, tables, Wz, T)
+                want = fused_chain_rows_reference(y0, gx, tab, tables, Wz, T, noise="philox",
+                                                  seed=5)
+                held("bf16 noise stream", "bfloat16_noise_stream", got, want,
+                     CHAIN_NOISE["rtol"], CHAIN_NOISE["atol"], f"F={Fdim}")
+                # one seed, two launch shapes: the rows they share are equal
+                for mm in TOL:
+                    full = fused_chain_rows(y0, gx, tab, 5, tables, W, T, matmul_dtype=mm)
+                    part = fused_chain_rows(y0[:1000].contiguous(), gx[:1000].contiguous(), tab,
+                                            5, tables, W, T, matmul_dtype=mm)
+                    if not torch.equal(full[:1000], part):
+                        raise AssertionError(f"K2 {mm}: seed 5 gives other rows at M=1000 than "
+                                             f"at M=65537 (F={Fdim})")
+                got = fused_chain_rows(y0, gx, tab, 0, tables, W, T, noise_mode="zero")
+                want = k1_chain_zero_noise(den, y0, gx, sched, "bfloat16")
+                held("bf16 against the K1 chain", "bfloat16_vs_k1_chain", got, want, 0.0, bar16,
+                     f"F={Fdim}")
+    return err
+
+
 def new_kernel_spills(build_log):
     """ptxas lines of the tensor-core kernels that report a spill."""
     bad, current = [], ""
@@ -304,7 +477,8 @@ def main(argv=None):
     from upgdm_tpu_torch.models.nsdiff import NsDiffModel
     from upgdm_tpu_torch.ops.kernels import _build
     from upgdm_tpu_torch.ops.kernels.chain_resident import (
-        fused_chain_rows, fused_chain_rows_reference, fused_nsdiff_chain, schedule_table,
+        chain_operands, fused_chain_rows, fused_chain_rows_reference, fused_nsdiff_chain,
+        schedule_table,
     )
     from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
         denoiser_gammas, denoiser_weights, fused_denoiser_rows, step_weights,
@@ -388,25 +562,14 @@ def main(argv=None):
     sched = NsDiffSchedule.create("linear", STEPS, 1e-4, 2e-2)
     tab = torch.as_tensor(schedule_table(sched), device=dev)
     tables = tuple(e.detach() for e in (den.lin1.embed, den.lin2.embed, den.lin3.embed))
-    k2_err = {}
+    try:
+        k2_err = check_chain_kernel(dev)
+    except AssertionError as exc:
+        fail("k2", str(exc))
     with torch.no_grad():
-        M = 65537
-        y0 = torch.randn(M, 1, generator=gen, device=dev) * 0.5 + 1.0
-        gx = torch.rand(M, 1, generator=gen, device=dev) * 0.95 + 0.05
-        for use_gx in (False, True):
-            got = fused_chain_rows(y0, gx, tab, 0, tables, W, STEPS, matmul_dtype="float32",
-                                   noise_mode="zero", use_gx_directly=use_gx)
-            want = fused_chain_rows_reference(y0, gx, tab, tables, W, STEPS,
-                                              matmul_dtype="float32", noise_mode="zero",
-                                              use_gx_directly=use_gx)
-            torch.cuda.synchronize()
-            excess = ((got - want).abs() - (2e-6 + 2e-5 * want.abs())).max().item()
-            k2_err[f"float32_gx{int(use_gx)}"] = (got - want).abs().max().item()
-            require(torch.isfinite(got).all().item(), "k2", f"non-finite chain gx={use_gx}")
-            require(excess <= 0, "k2", f"zero-noise chain off rtol 2e-5/atol 2e-6 "
-                    f"by {excess} (use_gx_directly={use_gx})")
-        # bf16 matmuls, noise-free: boundary flips (see K1) compound over the
-        # 20 steps; held to 5e-2 of the mean |y_0| as a sanity bar only
+        # the main path's own denoiser: noise-free bf16 chain within 5e-2 of the
+        # mean |y_0| (a sanity bar beside check_chain_kernel's derived one)
+        y0, gx = chain_rows(65537, 1, gen, dev)
         got = fused_chain_rows(y0, gx, tab, 0, tables, W, STEPS, noise_mode="zero")
         want = fused_chain_rows_reference(y0, gx, tab, tables, W, STEPS, noise_mode="zero")
         rel = ((got - want).abs().max() / want.abs().mean()).item()
@@ -425,19 +588,50 @@ def main(argv=None):
         mpv_p = ens_p.var(dim=-1, correction=0).mean().item()
         mpv_rel = abs(mpv_k - mpv_p) / mpv_p
         require(mpv_rel <= 0.01, "k2", f"Philox MPV {mpv_k} vs twin {mpv_p}: {mpv_rel:.4%}")
+        # bf16 arm against the float32 arm, same seed (the same normals): chunk
+        # MPV within 1%, the bar of the K1 chain's two arms
+        ens_32 = fused_nsdiff_chain(den, yb, gb, sched, seed=5, n_z_samples=N_Z,
+                                    matmul_dtype="float32")
+        mpv_32 = ens_32.var(dim=-1, correction=0).mean().item()
+        mpv_rel_arms = abs(mpv_k - mpv_32) / mpv_32
+        require(mpv_rel_arms <= 0.01, "k2",
+                f"bf16 K2 MPV {mpv_k} vs float32 K2 {mpv_32}: {mpv_rel_arms:.4%}")
+        del ens_p, ens_k, ens_32
+        # the main path's own 4.8 M rows, element by element: noise-free in both
+        # matmul types at check_chain_kernel's bars, then the float32 arm per
+        # sample on the same Philox normals
+        bar16 = k2_err[f"bfloat16_bar_T{STEPS}"]
+        quiet = {"noise_mode": "zero"}
+        for key, mm, kw, rtol, atol in (
+                ("float32", "float32", quiet, CHAIN_F32["rtol"], CHAIN_F32["atol"]),
+                ("bfloat16", "bfloat16", quiet, 0.0, bar16),
+                ("float32_noise", "float32", {}, CHAIN_NOISE["rtol"], CHAIN_NOISE["atol"])):
+            got = fused_chain_rows(y0r, gxr, tab, 5, tables, W, STEPS, matmul_dtype=mm, **kw)
+            want = fused_chain_rows_reference(y0r, gxr, tab, tables, W, STEPS, matmul_dtype=mm,
+                                              noise="philox", seed=5, **kw)
+            require(torch.isfinite(got).all().item(), "k2",
+                    f"non-finite {key} chain at {M_MAIN} rows")
+            over = off_by(got, want, rtol, atol)
+            require(over <= 0, "k2", f"{key} chain off rtol {rtol} / atol {atol} by {over} "
+                    f"at the main path's {M_MAIN} rows")
+            k2_err[key] = max(k2_err[key], (got - want).abs().max().item())
+            del got, want
         k2_ms, k2_plain_ms, k2_bound = {}, {}, {}
         for mm in ("float32", "bfloat16"):
-            # three timed calls after one warm-up: a call takes ~0.5 s (twin ~1 s)
-            k2_ms[mm] = cuda_ms(lambda: fused_chain_rows(
-                y0r, gxr, tab, 5, tables, W, STEPS, matmul_dtype=mm), reps=3, warmup=1)
+            ops = chain_operands(tables, W, getattr(torch, mm))  # laid out once
+            call = lambda: fused_chain_rows(y0r, gxr, tab, 5, *ops, STEPS, matmul_dtype=mm)
+            # ten timed calls where a call takes under 0.1 s, else three (the
+            # float32 arm takes ~0.5 s, the twins ~1 s)
+            t_one, _ = host_s(call)
+            k2_ms[mm] = cuda_ms(call, reps=10 if t_one < 0.1 else 3, warmup=1)
             k2_plain_ms[mm] = cuda_ms(lambda: fused_chain_rows_reference(
                 y0r, gxr, tab, tables, W, STEPS, matmul_dtype=mm, generator=tgen),
                 reps=3, warmup=1)
             k2_bound[mm] = bound(k2_work(M_MAIN, STEPS), mm)
-        del y0r, gxr, ens_p, ens_k
+        del y0r, gxr
     emit(phase="k2", card=smi_line, max_abs_err=k2_err, mpv_kernel=mpv_k, mpv_twin=mpv_p,
-         mpv_rel=mpv_rel, rows=M_MAIN, ms=k2_ms, plain_ms=k2_plain_ms,
-         bound_ms={k: v[0] for k, v in k2_bound.items()},
+         mpv_rel=mpv_rel, mpv_float32_arm=mpv_32, mpv_rel_bf16_vs_f32=mpv_rel_arms, rows=M_MAIN,
+         ms=k2_ms, plain_ms=k2_plain_ms, bound_ms={k: v[0] for k, v in k2_bound.items()},
          bound_by={k: v[1] for k, v in k2_bound.items()})
 
     # -- 5. K3 against its plain twin ------------------------------------------
@@ -516,15 +710,18 @@ def main(argv=None):
     del a, b, c
 
     # -- 7. the K2 arm at full width ---------------------------------------------
+    k2_arm = lambda: fused_nsdiff_chain(model.denoiser, y0h, gxh, model.sched, seed=11,
+                                        n_z_samples=N_Z, matmul_dtype=mm_main)
+    k2_arm()  # warm-up, as the K1 chain had its own
     zero_counts()
-    t_k2, ens2 = host_s(lambda: fused_nsdiff_chain(
-        model.denoiser, y0h, gxh, model.sched, seed=11, n_z_samples=N_Z, matmul_dtype=mm_main))
+    t_k2, ens2 = host_s(k2_arm)
     k2_launches = fused_chain_rows.launches
     require(k2_launches == 1, "k2_arm", f"K2 launched {k2_launches} times, expected 1")
     mpv_k2, _ = mpv_reduce(ens2, std, 0 * std, CHUNK, NODE, PRED_LEN)
     m1, m2 = mpv_k1.mean().item(), mpv_k2.mean().item()
     rel = abs(m2 - m1) / m1
-    emit(phase="k2_arm", card=smi_line, seconds=t_k2, chunk_mpv_k1=m1, chunk_mpv_k2=m2,
+    emit(phase="k2_arm", card=smi_line, seconds=t_k2, k1_chain_seconds=t_chain,
+         chunk_mpv_k1=m1, chunk_mpv_k2=m2,
          rel=rel, per_window_max_rel=((mpv_k2 - mpv_k1).abs() / mpv_k1).max().item(),
          k2_launches=k2_launches)
     require(rel <= 0.01, "k2_arm", f"K2 arm MPV {m2} vs K1 path {m1}: {rel:.4%}")
@@ -644,7 +841,7 @@ def main(argv=None):
             k1_ms, k1_plain_ms, k1_bound),
         row("chain_resident", "upgdm_tpu_torch/csrc/chain_resident.cu",
             "upgdm_tpu/ops/pallas/chain_resident.py:188", k2_launches,
-            k2_err["float32_gx0"], k2_ms, k2_plain_ms, k2_bound),
+            k2_err[mm_main], k2_ms, k2_plain_ms, k2_bound),
         row("fused_tmdm", "upgdm_tpu_torch/csrc/fused_tmdm.cu",
             "upgdm_tpu/ops/pallas/fused_denoiser.py:250", k3_launches, k3_err[mm_main],
             k3_ms, k3_plain_ms, k3_bound),

@@ -115,10 +115,12 @@ def test_kernel_work_counts():
     assert roofline.k1_work(1) == (2.0 * (384 + 32768 + 256), 20.0, 2 * 513 + 3)
     # K3: 2 x (2 x 128 + 2 x 128^2 + 128) FLOP, 3 floats, 3 x 128 softplus
     assert roofline.k3_work(1) == (2.0 * (256 + 32768 + 128), 12.0, 768.0)
-    # K2 is T steps of K1's trunk and heads on rows that are read and written once
+    # K2 is T steps of K1's trunk and heads, plus seven special functions a
+    # (row, step, feature) for the noise draw and the posterior, on rows that
+    # are read and written once
     f1, _, s1 = roofline.k1_work(10)
     f2, b2, s2 = roofline.k2_work(10, T=20)
-    assert s2 == 20 * s1 and b2 == 4.0 * 10 * 3
+    assert s2 == 20 * (s1 + 7 * 10) and b2 == 4.0 * 10 * 3
     assert f2 == 2.0 * 10 * (256 + 20 * (128 + 32768 + 256))
     # at the sweeps' sizes the bf16 arms are bound by the special functions,
     # the float32 arms by operations

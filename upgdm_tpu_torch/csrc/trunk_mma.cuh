@@ -1,7 +1,9 @@
-// Tensor-core trunk of the denoiser-step kernels for Hopper (sm_90a): the
-// bf16 arm of fused_denoiser.cu (K1) and fused_tmdm.cu (K3). It replaces, for
-// matmul_dtype = bfloat16, the body of the TPU kernels
-// upgdm_tpu/ops/pallas/fused_denoiser.py::_kernel and ::_tmdm_kernel:
+// Tensor-core trunk of the denoiser kernels for Hopper (sm_90a): the bf16 arm
+// of fused_denoiser.cu (K1), fused_tmdm.cu (K3) and chain_resident.cu (K2, which
+// runs it once per reverse step on a tile it keeps in registers). It replaces,
+// for matmul_dtype = bfloat16, the body of the TPU kernels
+// upgdm_tpu/ops/pallas/fused_denoiser.py::_kernel and ::_tmdm_kernel and the
+// trunk of upgdm_tpu/ops/pallas/chain_resident.py::_chain_kernel:
 //     h = [l2norm](softplus(gamma_i * (h . W_i + b_i)))       i = 1, 2, 3
 // followed by the kernel's own F-wide heads.
 //
@@ -232,13 +234,11 @@ __device__ __forceinline__ float4 gate_pair(const float* g, const float* b, int 
   return make_float4(g[2 * p], g[2 * p] * b[2 * p], g[2 * p + 1], g[2 * p + 1] * b[2 * p + 1]);
 }
 
-// Stage the trunk's weights and gates (whole block). W2t and W3t are in the
-// tiled order already; W1 is [IN, 128] bf16. Ends with the block barrier.
+// Stage the trunk's matrices (whole block): W2t and W3t are in the tiled order
+// already; W1 is [IN, 128] bf16 and is kept as float32. No barrier.
 template <int IN, int NH>
-__device__ __forceinline__ void stage_trunk(unsigned char* smem, const __nv_bfloat16* W1,
-                                            const uint4* W2t, const uint4* W3t,
-                                            const float* g1, const float* b1, const float* g2,
-                                            const float* b2, const float* g3, const float* b3) {
+__device__ __forceinline__ void stage_matrices(unsigned char* smem, const __nv_bfloat16* W1,
+                                               const uint4* W2t, const uint4* W3t) {
   using S = Smem<IN, NH>;
   uint4* w2 = reinterpret_cast<uint4*>(smem + S::w2);
   uint4* w3 = reinterpret_cast<uint4*>(smem + S::w3);
@@ -246,17 +246,33 @@ __device__ __forceinline__ void stage_trunk(unsigned char* smem, const __nv_bflo
     w2[i] = W2t[i];
     w3[i] = W3t[i];
   }
+  float* w1 = reinterpret_cast<float*>(smem + S::w1);
+  for (int i = threadIdx.x; i < IN * HID; i += blockDim.x) w1[i] = __bfloat162float(W1[i]);
+}
+
+// Make the staged matrices visible to the block and to wgmma, which reads
+// shared memory through the async proxy.
+__device__ __forceinline__ void staging_done() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+}
+
+// Stage the trunk's weights and one step's gates (whole block). Ends with the
+// block barrier.
+template <int IN, int NH>
+__device__ __forceinline__ void stage_trunk(unsigned char* smem, const __nv_bfloat16* W1,
+                                            const uint4* W2t, const uint4* W3t,
+                                            const float* g1, const float* b1, const float* g2,
+                                            const float* b2, const float* g3, const float* b3) {
+  using S = Smem<IN, NH>;
+  stage_matrices<IN, NH>(smem, W1, W2t, W3t);
   float4* gb = reinterpret_cast<float4*>(smem + S::gb);
   for (int p = threadIdx.x; p < 64; p += blockDim.x) {
     gb[p] = gate_pair(g1, b1, p);
     gb[64 + p] = gate_pair(g2, b2, p);
     gb[128 + p] = gate_pair(g3, b3, p);
   }
-  float* w1 = reinterpret_cast<float*>(smem + S::w1);
-  for (int i = threadIdx.x; i < IN * HID; i += blockDim.x) w1[i] = __bfloat162float(W1[i]);
-  // wgmma reads shared memory through the async proxy
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
+  staging_done();
 }
 
 // Stage one head matrix W [128, F] bf16 as F float32 rows of 128 (before the

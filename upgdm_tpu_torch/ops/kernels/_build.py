@@ -89,7 +89,7 @@ def _declare(lib):
                                          p, p, i, p]
     lib.upgdm_fused_denoiser.restype = i
     lib.upgdm_chain_resident.argtypes = [p, p, ll, i, i, p, u64, i, i, p, p, p, p, p, p, p,
-                                         p, p, p, p, p, p, p, i, p]
+                                         p, p, p, p, p, p, p, p, i, p]
     lib.upgdm_chain_resident.restype = i
     lib.upgdm_fused_tmdm.argtypes = [p, ll, i, p, p, p, p, p, p, p, p, p, p, p, p, i, p]
     lib.upgdm_fused_tmdm.restype = i

@@ -8,11 +8,19 @@ with the deterministic reparameterisation at t = 0 — the arithmetic of
 ``ops/diffusion.py::nsdiff_p_sample_loop`` with the trunk's first-layer
 [y0_hat, gx] partial product hoisted out of the loop.
 
-The kernel draws its noise from Philox4x32-10 keyed by (seed, row, step);
-the plain twin ``fused_chain_rows_reference`` draws from a
-``torch.Generator``. The two streams differ, so sampled chains agree in
-distribution (ensemble MPV), and ``noise_mode="zero"`` makes both
-deterministic for exact comparisons.
+The kernel draws its noise from Philox4x32-10 keyed by (seed, row, step,
+feature pair) with a Box-Muller transform; ``philox_normal_reference`` repeats
+that stream in plain PyTorch. The plain twin ``fused_chain_rows_reference``
+draws from a ``torch.Generator`` (another stream: sampled chains then agree
+in distribution, at the ensemble MPV) or, with ``noise="philox"``, from the
+kernel's own stream, which holds a sampled chain to the kernel per sample.
+``noise_mode="zero"`` makes both deterministic.
+
+On the card ``matmul_dtype="bfloat16"`` is the tensor-core kernel
+(``csrc/trunk_mma.cuh``): it takes W2/W3 in the tiled order of
+``step_weights`` and every step's gates as one ``gate_table``;
+``chain_operands`` makes both once for many launches. ``"float32"`` is the
+CUDA-core parity arm on the flax-layout weights.
 """
 from __future__ import annotations
 
@@ -28,13 +36,18 @@ from .fused_denoiser import (
     _check_mat,
     _check_vec,
     _dot,
+    _hidden_shape,
     check_dtypes,
     denoiser_weights,
-    kernel_weights,
+    step_weights,
 )
 
 __all__ = [
     "schedule_table",
+    "gate_table",
+    "chain_operands",
+    "philox4x32_10",
+    "philox_normal_reference",
     "fused_chain_rows",
     "fused_chain_rows_reference",
     "fused_nsdiff_chain",
@@ -43,6 +56,8 @@ __all__ = [
 
 MAX_T = 1024  # csrc/chain_resident.cu::MAX_T
 _NOISE = ("prng", "zero")
+_NOISE_SOURCE = ("generator", "philox")
+_MASK32 = 0xFFFFFFFF
 
 
 def schedule_table(sched) -> np.ndarray:
@@ -51,6 +66,78 @@ def schedule_table(sched) -> np.ndarray:
             sched.betas_tilde_m_1, sched.betas_bar_m_1,
             sched.alphas_cumprod_prev, sched.one_minus_alphas_bar_sqrt]
     return np.ascontiguousarray(np.stack([np.asarray(r, np.float32) for r in rows], axis=0))
+
+
+def gate_table(gammas_tables, b1, b2, b3) -> torch.Tensor:
+    """Every step's gates as the tensor-core arm of K2 reads them: float32
+    ``[T, 3, 64, 4]`` with entry (t, layer, p) = (g[2p], g[2p] * b[2p],
+    g[2p+1], g[2p+1] * b[2p+1]) for g = E_layer[t] and b the layer's bias
+    (``csrc/trunk_mma.cuh::gate_pair``; the gate is then one FMA)."""
+    layers = []
+    for E, b in zip(gammas_tables, (b1, b2, b3)):
+        g = E.detach().float()
+        layers.append(torch.stack([g, g * b.detach().float()], dim=-1))  # [T, 128, 2]
+    T = layers[0].shape[0]
+    return torch.stack(layers, dim=1).reshape(T, 3, HIDDEN // 2, 4).contiguous()
+
+
+def chain_operands(gammas_tables, weights, mm: torch.dtype):
+    """(gates, weights) as K2 takes them on the card, made once for many
+    launches: ``step_weights`` of the flax-layout tuple and, for bf16, the
+    ``gate_table`` of (E1, E2, E3) and the three trunk biases (float32 keeps
+    the tables). Operands already prepared come back unchanged."""
+    weights = step_weights(weights, mm)
+    if mm == torch.bfloat16 and not isinstance(gammas_tables, torch.Tensor):
+        gammas_tables = gate_table(gammas_tables, weights[1], weights[3], weights[5])
+    return gammas_tables, weights
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(high, low) 32-bit words of m * x for a 32-bit constant m and int64 x
+    holding 32-bit values, without leaving int64."""
+    lo16, hi16 = x & 0xFFFF, x >> 16
+    a, b = m * lo16, m * hi16  # each below 2^48
+    low = (a + ((b & 0xFFFF) << 16)) & _MASK32
+    high = (b + (a >> 16)) >> 16
+    return high, low
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors holding 32-bit
+    words: counter (c0, c1, c2, c3), key (k0, k1) -> four words. The round of
+    ``csrc/chain_resident.cu::philox4x32_10``."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & _MASK32
+        k1 = (k1 + 0xBB67AE85) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_normal_reference(seed: int, rows: torch.Tensor, step: int, F: int) -> torch.Tensor:
+    """The standard normals K2 draws for global rows ``rows`` (int64 [M]) at
+    ``step`` (T for y_T, else t): float32 [M, F]. Counter (row low, row high,
+    step, f // 2), key (seed low, seed high); Box-Muller on the first two
+    words, cosine for even f and sine for odd f. A value depends on (seed,
+    row, step, f) only, never on how many rows are asked for. The transform
+    is taken in float64 and rounded once."""
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+    seed = int(seed) & (2**64 - 1)
+    key = tuple(torch.full_like(rows, k) for k in (seed & _MASK32, seed >> 32))
+    cols = []
+    for pair in range((F + 1) // 2):
+        counter = (rows & _MASK32, (rows >> 32) & _MASK32, torch.full_like(rows, int(step)),
+                   torch.full_like(rows, pair))
+        b0, b1, _, _ = philox4x32_10(counter, key)
+        # u1 in (0, 1] so log(u1) is finite; 24 bits is all a float32 keeps
+        u1 = ((b0 >> 8) + 1).double() / 16777216.0
+        u2 = (b1 >> 8).double() / 16777216.0
+        rad = torch.sqrt(-2.0 * torch.log(u1))
+        cols += [rad * torch.cos(2.0 * torch.pi * u2), rad * torch.sin(2.0 * torch.pi * u2)]
+    return torch.stack(cols[:F], dim=-1).float()
 
 
 def _sigma_y0_hat(a, bt_m1, bb_m1, gx, sigma_theta):
@@ -68,16 +155,20 @@ def _sigma_y0_hat(a, bt_m1, bb_m1, gx, sigma_theta):
 def fused_chain_rows_reference(y0h, gx, tab, gammas_tables, weights, n_steps,
                                matmul_dtype="bfloat16", act_dtype="float32",
                                noise_mode="prng", use_gx_directly=False,
-                               generator=None):
+                               generator=None, noise="generator", seed=0):
     """Plain PyTorch twin of K2: y0h/gx [M, F] -> y_0 [M, F].
 
     tab: [7, T] schedule table (tensor on the rows' device); gammas_tables:
-    (E1, E2, E3) [T, HIDDEN]; weights as ``denoiser_weights``. Noise is
-    drawn from ``generator`` with ``torch.randn`` when noise_mode="prng".
+    (E1, E2, E3) [T, HIDDEN]; weights as ``denoiser_weights``. With
+    noise_mode="prng" the normals come from ``generator`` (``torch.randn``)
+    or, with noise="philox", from the kernel's stream for rows 0..M-1 under
+    ``seed`` (``philox_normal_reference``).
     """
     mm = check_dtypes(matmul_dtype, act_dtype)
     if noise_mode not in _NOISE:
         raise ValueError(f"noise_mode={noise_mode!r}: expected one of {_NOISE}")
+    if noise not in _NOISE_SOURCE:
+        raise ValueError(f"noise={noise!r}: expected one of {_NOISE_SOURCE}")
     W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = weights
     E1, E2, E3 = gammas_tables
     Fdim = y0h.shape[-1]
@@ -97,7 +188,10 @@ def fused_chain_rows_reference(y0h, gx, tab, gammas_tables, weights, n_steps,
         sigma = F.softplus(_dot(F.softplus(h), Ws, mm) + bs)
         return eps, sigma
 
-    def normal(like):
+    def normal(like, step):
+        if noise == "philox":
+            rows = torch.arange(like.shape[0], device=like.device)
+            return philox_normal_reference(seed, rows, step, Fdim)
         return torch.randn(like.shape, generator=generator, device=like.device,
                            dtype=torch.float32)
 
@@ -108,7 +202,7 @@ def fused_chain_rows_reference(y0h, gx, tab, gammas_tables, weights, n_steps,
         s_y0 = _sigma_y0_hat(a, bt_m1, bb_m1, gx, sigma_theta)
         return s_y0, (bb - bt) * gx + bt * s_y0
 
-    y = torch.sqrt(gx) * normal(y0h) + y0h if noise_mode == "prng" else y0h
+    y = torch.sqrt(gx) * normal(y0h, n_steps) + y0h if noise_mode == "prng" else y0h
     for t in range(n_steps - 1, -1, -1):
         eps_theta, sigma_theta = trunk(y, t)
         sqrt_abar = torch.sqrt(1.0 - tab[6, t] * tab[6, t])
@@ -127,7 +221,7 @@ def fused_chain_rows_reference(y0h, gx, tab, gammas_tables, weights, n_steps,
         g2 = ((sqrt_a * (a - 1.0)) * s2 + (1.0 - sqrt_abar_prev) * s1) / denom
         y = g0 * y0_reparam + g1 * y + g2 * y0h
         if noise_mode == "prng":
-            y = y + torch.sqrt(sigma_theta) * normal(y)
+            y = y + torch.sqrt(sigma_theta) * normal(y, t)
     raise ValueError("n_steps must be >= 1")
 
 
@@ -136,8 +230,11 @@ def fused_chain_rows(y0h, gx, tab, seed, gammas_tables, weights, n_steps,
                      use_gx_directly=False):
     """y0h/gx: [M, F] rows -> y_0 [M, F] after the full reverse chain.
 
-    CUDA tensors launch K2 (Philox noise keyed by ``seed``); CPU tensors run
-    the plain twin with a ``torch.Generator`` seeded by ``seed``.
+    CUDA tensors launch K2 (Philox noise keyed by ``seed``) on
+    ``gammas_tables`` (E1, E2, E3) and the flax-layout ``weights``, or on what
+    ``chain_operands`` made of them; CPU tensors run the plain twin on the
+    tables and the flax-layout tuple with a ``torch.Generator`` seeded by
+    ``seed``.
     """
     if y0h.device.type == "cpu":
         gen = torch.Generator().manual_seed(int(seed))
@@ -162,28 +259,35 @@ def fused_chain_rows(y0h, gx, tab, seed, gammas_tables, weights, n_steps,
         raise ValueError(f"F={Fdim} (max {MAX_F}) or T={n_steps} (max {MAX_T}) out of range")
     tab = torch.as_tensor(tab, dtype=torch.float32, device=dev).contiguous()
     _check_mat("tab", tab, (7, n_steps), torch.float32, dev)
-    E1, E2, E3 = (e.float().contiguous() for e in gammas_tables)
-    for name, e in (("E1", E1), ("E2", E2), ("E3", E3)):
-        _check_mat(name, e, (n_steps, HIDDEN), torch.float32, dev)
-    W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = kernel_weights(weights, mm)
+    bf16 = mm == torch.bfloat16
+    gammas_tables, weights = chain_operands(gammas_tables, weights, mm)
+    W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = weights
     for name, b in (("b1", b1), ("b2", b2), ("b3", b3)):
         _check_vec(name, b, HIDDEN, dev)
     _check_vec("b4", b4, Fdim, dev)
     _check_vec("bs", bs, Fdim, dev)
     _check_mat("W1", W1, (3 * Fdim, HIDDEN), mm, dev)
-    _check_mat("W2", W2, (HIDDEN, HIDDEN), mm, dev)
-    _check_mat("W3", W3, (HIDDEN, HIDDEN), mm, dev)
+    _check_mat("W2", W2, _hidden_shape(mm), mm, dev)
+    _check_mat("W3", W3, _hidden_shape(mm), mm, dev)
     _check_mat("W4", W4, (HIDDEN, Fdim), mm, dev)
     _check_mat("Ws", Ws, (HIDDEN, Fdim), mm, dev)
+    ptr = lambda t: t.data_ptr()
+    if bf16:  # every step's (gamma, gamma * bias) pairs in one table
+        _check_mat("gates", gammas_tables, (n_steps, 3, HIDDEN // 2, 4), torch.float32, dev)
+        tables = (None, None, None, ptr(gammas_tables))
+    else:
+        E = tuple(e.float().contiguous() for e in gammas_tables)
+        for name, e in zip(("E1", "E2", "E3"), E):
+            _check_mat(name, e, (n_steps, HIDDEN), torch.float32, dev)
+        tables = tuple(ptr(e) for e in E) + (None,)
     out = torch.empty((M, Fdim), dtype=torch.float32, device=dev)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: t.data_ptr()
     code = lib.upgdm_chain_resident(
         ptr(y0h), ptr(gx), M, Fdim, n_steps, ptr(tab), int(seed) & (2**64 - 1),
-        int(noise_mode == "prng"), int(bool(use_gx_directly)), ptr(E1), ptr(E2), ptr(E3),
+        int(noise_mode == "prng"), int(bool(use_gx_directly)), *tables,
         ptr(W1), ptr(b1), ptr(W2), ptr(b2), ptr(W3), ptr(b3), ptr(W4), ptr(b4), ptr(Ws),
-        ptr(bs), ptr(out), int(mm == torch.bfloat16), stream,
+        ptr(bs), ptr(out), int(bf16), stream,
     )
     _build.check(code, "chain_resident")
     fused_chain_rows.launches += 1

@@ -115,7 +115,7 @@ def _check_mat(name, t, shape, dtype, device):
 
 
 def kernel_weights(weights, mm: torch.dtype) -> Tuple[torch.Tensor, ...]:
-    """Weights as the CUDA-core kernels (K2, the float32 arms of K1 and K3)
+    """Weights as the CUDA-core kernels (the float32 arms of K1, K2 and K3)
     take them: contiguous matrices in the matmul dtype (bf16 rounding is
     round-to-nearest-even), float32 biases."""
     return tuple(
@@ -157,10 +157,10 @@ def untile_b_operand(T: torch.Tensor) -> torch.Tensor:
 
 
 def step_weights(weights, mm: torch.dtype) -> Tuple[torch.Tensor, ...]:
-    """The one preparation of a flax-layout weight tuple for the step kernels
-    K1 and K3 on the card: ``kernel_weights`` and, for bf16, W2 and W3
-    (positions 2 and 4) tiled for the tensor-core product. A tuple already
-    prepared comes back unchanged."""
+    """The one preparation of a flax-layout weight tuple for the kernels on
+    the card (K1, K3 and, through ``chain_operands``, K2): ``kernel_weights``
+    and, for bf16, W2 and W3 (positions 2 and 4) tiled for the tensor-core
+    product. A tuple already prepared comes back unchanged."""
     out = list(kernel_weights(weights, mm))
     if mm == torch.bfloat16:
         for i in (2, 4):

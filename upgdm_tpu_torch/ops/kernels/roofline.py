@@ -56,11 +56,14 @@ def k1_work(M: int, F: int = 1) -> Tuple[float, float, float]:
 def k2_work(M: int, T: int, F: int = 1) -> Tuple[float, float, float]:
     """One K2 call: the T-step chain on M rows. y0_hat and gx [M, F] in, y_0
     out; the first layer's y0_hat/gx partials once, then T steps of the K1
-    trunk and heads. The noise draw and the posterior's roots are left out of
-    the special-function count (a lower bound stays a bound)."""
+    trunk and heads. Per (row, step, feature) the chain also needs seven
+    special-function results: the normal's log, root and cosine or sine, the
+    roots of the quadratic's discriminant, of noise_var and of sigma_theta,
+    and the reciprocal of the posterior's denominator (the other divisors
+    depend on the step alone). At F = 1 they add 7 to the trunk's 1,029."""
     flops = 2.0 * M * (2 * F * HID + T * (F * HID + 2 * HID * HID + 2 * HID * F))
     nbytes = 4.0 * M * 3 * F
-    sfu = T * M * (_softplus(4 * HID + F) + 3)
+    sfu = T * M * (_softplus(4 * HID + F) + 3 + 7 * F)
     return flops, nbytes, sfu
 
 
