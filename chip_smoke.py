@@ -17,7 +17,14 @@ sampling-MPV sweep at the model-comparison geometry (Node 30, W/P 100/100,
 label 50, 100 steps, 100 samples, d_model 64, e2/d1) through the port's entry
 points, holds each sweep's bf16 kernel chain to its float32 kernel chain at
 the MPV level, runs the cache-first evaluation runner, and checks the trained
-SIS model of ``demo_fig1``. Every phase that fails exits
+SIS model of ``demo_fig1``. Then training: the train step of every NsDiff
+stage at the train-bench geometry (``bench_train.py``: B 64, W/P 100/100,
+d_model 512, e4/d2) and of TMDM at its model-comparison geometry, timed in
+float32 and ``train_dtype="bfloat16"``, with the card's loss and gradients
+held to the port's CPU run on one batch; the demo's three-stage protocol
+(``examples/slbp_demo.py``) on the committed SLBP trajectory through
+``run_training``, each stage's score held to the committed JAX record; and
+the checkpoint it wrote swept through K1. Every phase that fails exits
 non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
 last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
@@ -59,6 +66,23 @@ TMDM_PARAM = dict(
     beta_end=2e-2, activation="gelu",
 )
 M_TMDM = N_Z * T_CHUNK * NODE * (T_LABEL + PRED_LEN)  # rows per K3 call: 3.6 M
+
+# NsDiff train-bench geometry (bench_train.py:33-38) and TMDM's above, B 64
+TRAIN_B, TRAIN_REPS = 64, 10
+TRAIN_PARAM = dict(NET_PARAM, scaler_type=None, dropout=0.05)
+TMDM_TRAIN_PARAM = dict(TMDM_PARAM, scaler_type=None, dropout=0.05)
+# card against CPU on one batch, dropout off: float32 on both sides, sums in
+# another order through the transformer and back. The attention key biases
+# have a zero gradient in exact arithmetic (a shift shared by a query's
+# scores leaves the softmax unchanged): only rounding is left in them, held
+# below TRAIN_GRAD_ZERO of the model's largest gradient on both sides
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_GRAD_ZERO = 1e-4, 1e-3, 1e-6
+
+# the demo's protocol (examples/slbp_demo.py:69-130) and its committed records
+DEMO = REPO / "demo_artifacts"
+DEMO_EPOCHS, DEMO_BAR = 30, 0.25
+DEMO_STAGES = (("pretrain_f", "pre_model_F"), ("pretrain_g", "pre_model_G"),
+               ("NsDiff_model", "nsdiff"))
 
 SIS_MODEL = REPO / "demo_fig1/ews_results/model_compare/NsDiff/SIS"
 SIS_DATA = REPO / "demo_fig1/spdata_sde_SIS/barabasi_albert_12_0/SIS_dynamic_eta0.0001d0.5_increase.pt"
@@ -438,6 +462,134 @@ def check_chain_kernel(dev, seed=6):
                 held("bf16 against the K1 chain", "bfloat16_vs_k1_chain", got, want, 0.0, bar16,
                      f"F={Fdim}")
     return err
+
+
+# -- training ------------------------------------------------------------------------
+def train_step_ms(model, select, batch, dtype):
+    """(median ms of a train step by CUDA events over TRAIN_REPS steps after
+    two of warm-up, the losses) for one stage in float32 or bf16."""
+    import torch
+
+    from upgdm_tpu_torch.train.loop import make_train_step
+    from upgdm_tpu_torch.train.optimizers import make_optimizer
+
+    model.net_param["train_dtype"] = dtype
+    opt = make_optimizer({"optimizer_name": "Adam", "lr": 1e-3}, model.net,
+                         model.trainable_mask(select))
+    step = make_train_step(model, opt, select)
+    losses = [step(batch) for _ in range(2)]
+    times = []
+    for _ in range(TRAIN_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(batch))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), losses
+
+
+def train_step_split(model, select, batch, dtype, reps=3, profiled=2):
+    """Where a train step's time goes: host ms of its forward (the loss),
+    backward and optimizer step, each ended by a synchronise (medians over
+    ``reps`` steps after two), and, by ``torch.profiler`` (device activity
+    only) over ``profiled`` unsynchronised steps, the device's summed kernel
+    time and the kernels a step (None when the profiler sees no device
+    activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from upgdm_tpu_torch.train.loop import make_train_step
+    from upgdm_tpu_torch.train.optimizers import make_optimizer
+
+    model.net_param["train_dtype"] = dtype
+    opt = make_optimizer({"optimizer_name": "Adam", "lr": 1e-3}, model.net,
+                         model.trainable_mask(select))
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    for _ in range(reps + 2):
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.autocast(model.device.type, dtype=torch.bfloat16, enabled=dtype != "float32"):
+            loss = model.loss_fn(batch, select=select, train=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.float().backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(v * 1e3)
+    out = {k: statistics.median(v[2:]) for k, v in parts.items()}
+    step = make_train_step(model, opt, select)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            step(batch)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["device_ms_per_step"] = (sum(e.time_range.elapsed_us() for e in kernels)
+                                 / (1e3 * profiled) if kernels else None)
+    out["kernels_per_step"] = len(kernels) / profiled if kernels else None
+    return out
+
+
+def card_vs_cpu(card_model, cls, net_param, batch, seams):
+    """The loss and gradients of ``card_model`` on one batch against the
+    port's CPU run on the same weights and draws, dropout off. Returns
+    (loss rel err, worst leaf err / its bar); AssertionError over a bar."""
+    import numpy as np
+    import torch
+
+    from upgdm_tpu_torch.utils.weights import flax_flat_from_torch
+
+    cpu = cls(net_param, device="cpu")
+    cpu.load_state_dict(card_model.state_dict(), strict=True)
+    out = []
+    for m in (card_model, cpu):
+        m.net.zero_grad(set_to_none=True)
+        m.net.requires_grad_(True)
+        kw = {k: v.to(m.device) if torch.is_tensor(v) else v for k, v in seams.items()}
+        loss = m.loss_fn(batch.to(m.device), train=False, **kw)
+        loss.backward()
+        out.append((loss.item(), flax_flat_from_torch({
+            k: p.grad if p.grad is not None else torch.zeros_like(p)
+            for k, p in m.net.named_parameters()})))
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"loss on the card {l_card} vs CPU {l_cpu}: {rel} relative")
+    top = max(np.abs(g).max() for g in g_cpu.values())
+    worst = 0.0
+    for k, g in g_cpu.items():
+        if k.endswith(".key.bias"):
+            size = float(max(np.abs(g).max(), np.abs(g_card[k]).max()))
+            if not size <= TRAIN_GRAD_ZERO * top:
+                raise AssertionError(f"gradient {k}: {size}, not zero beside {top}")
+            continue
+        bar = float(TRAIN_GRAD_REL * np.abs(g).max())
+        err = float(np.abs(g_card[k] - g).max())
+        if not err <= bar:
+            raise AssertionError(f"gradient {k}: card off the CPU by {err} > {bar}")
+        if bar:  # zero only where the loss does not read the leaf (TMDM's x embedding)
+            worst = max(worst, err / bar)
+    return rel, worst
+
+
+def demo_split():
+    """The demo's dataset and split: default_rng(0) permutation, n_train a
+    multiple of 32 of 90% (examples/slbp_demo.py:75-84)."""
+    import numpy as np
+
+    from upgdm_tpu_torch.utils.data_prep import pre_dataset_timeseries
+
+    dataset_param = dict(file_path=str(DEMO / "slbp_data"), filter="*", sampling_t=100,
+                         windows=100, pred_len=100, interval_step=20, STG_exist=False)
+    dataset = pre_dataset_timeseries(**dataset_param)
+    n_train = (int(len(dataset) * 0.9) // 32) * 32
+    perm = np.random.default_rng(0).permutation(len(dataset))
+    return dataset[perm[:n_train]], dataset[perm[n_train:]], dataset_param
 
 
 def new_kernel_spills(build_log):
@@ -825,6 +977,106 @@ def main(argv=None):
     fg_err = max((f_c.cpu() - f_h).abs().max().item(), (g_c.cpu() - g_h).abs().max().item())
     emit(phase="trained", card=smi_line, mpv=sis_mpv.tolist(), fg_card_vs_cpu=fg_err)
     require(fg_err <= 1e-4, "trained", f"f/g on the card off the CPU by {fg_err}")
+    del sis, cpu
+
+    # -- 11. the train step at full width --------------------------------------------
+    from upgdm_tpu_torch.models.tmdm import TMDMModel
+    from upgdm_tpu_torch.train.loop import run_training
+
+    t_train = time.perf_counter()
+    rng = np.random.default_rng(0)
+    batch = torch.as_tensor(rng.normal(size=(TRAIN_B, WINDOWS + PRED_LEN, 1)),
+                            dtype=torch.float32, device=dev)
+    train = {}
+    for name, select, model in (
+            ("pretrain_f", "pretrain_f",
+             NsDiffModel(TRAIN_PARAM, "pretrain_f", seed=0, device="cuda")),
+            ("pretrain_g", "pretrain_g",
+             NsDiffModel(TRAIN_PARAM, "pretrain_g", seed=0, device="cuda")),
+            ("NsDiff_model", None, NsDiffModel(TRAIN_PARAM, seed=0, device="cuda")),
+            ("TMDM", None, TMDMModel(TMDM_TRAIN_PARAM, seed=0, device="cuda"))):
+        for dt in ("float32", "bfloat16"):  # the bf16 steps go on from the float32 ones
+            ms, losses = train_step_ms(model, select, batch, dt)
+            require(np.isfinite(losses).all(), "train", f"{name} {dt}: losses {losses}")
+            train[f"{name}_{dt}"] = {"step_ms": ms, "samples_per_s": TRAIN_B / ms * 1e3,
+                                     "loss_first": losses[0], "loss_last": losses[-1]}
+            if name in ("NsDiff_model", "TMDM"):
+                train[f"{name}_{dt}"]["split"] = train_step_split(model, select, batch, dt)
+        del model
+    # card against CPU on one batch of 16 at the same widths, dropout off
+    seams_ns = dict(t=torch.arange(16) % STEPS,
+                    noise=torch.as_tensor(rng.normal(size=(16, PRED_LEN, 1)), dtype=torch.float32))
+    seams_tm = dict(t=torch.arange(16) * 6 % T_STEPS,
+                    noise=torch.as_tensor(rng.normal(size=(16, T_LABEL + PRED_LEN, 1)),
+                                          dtype=torch.float32))
+    try:
+        for name, cls, param, seams in (
+                ("NsDiff_model", NsDiffModel, dict(TRAIN_PARAM, dropout=0.0), seams_ns),
+                ("TMDM", TMDMModel, dict(TMDM_TRAIN_PARAM, dropout=0.0), seams_tm)):
+            rel, worst = card_vs_cpu(cls(param, seed=1, device="cuda"), cls, param,
+                                     batch[:16], seams)
+            train[f"{name}_card_vs_cpu"] = {"loss_rel": rel, "worst_grad_err_over_bar": worst}
+    except AssertionError as exc:
+        fail("train", str(exc))
+    emit(phase="train", card=smi_line, seconds=time.perf_counter() - t_train, batch=TRAIN_B,
+         reps=TRAIN_REPS, **train,
+         bars={"loss_rtol": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_REL,
+               "key_bias_grad_below": TRAIN_GRAD_ZERO})
+    del batch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 12. the demo's three-stage protocol through run_training -----------------
+        tr, va, dataset_param = demo_split()
+        net = dict(read_model_config(DEMO / "pre_model_F/trained_model")["net"],
+                   load_pretrain=False)
+        opt = dict(optimizer_name="Adam", lr=1e-3, weight_decay=1e-5, scheduler_set=False)
+        base = dict(train_batch_size=32, val_batch_size=len(va), test_set=True, ckpt=False,
+                    ckpt_period=10, train_epochs=DEMO_EPOCHS)
+        stages = {}
+        for select, ref in DEMO_STAGES:
+            out = Path(tmp) / ref
+            stage_net = net
+            if select == "NsDiff_model":  # g from its stage, f from scratch
+                stage_net = dict(net, load_pretrain=True,
+                                 pretrain_f_path=str(Path(tmp) / "pre_model_F"),
+                                 pretrain_g_path=str(Path(tmp) / "pre_model_G"))
+            t_stage, rs = host_s(lambda: run_training(
+                tr, va, dict(base, train_model_select=select), dict(stage_net),
+                {"loss_metric": "KL divergence"}, opt, out, dataset_param=dataset_param,
+                device="cuda"))
+            (out / "model_trained").write_bytes((out / "trained_model/model_trained").read_bytes())
+            jax_rs = json.loads((DEMO / ref / "train_trace/record_scores.json").read_text())
+            got, want = float(np.mean(rs["train_scores"][-3:])), float(
+                np.mean(jax_rs["train_scores"][-3:]))
+            stages[select] = {"seconds": t_stage, "train_last3": got, "jax_train_last3": want,
+                              "rel": got / want - 1.0,
+                              "val_last3": float(np.mean(rs["val_scores"][-3:])),
+                              "jax_val_last3": float(np.mean(jax_rs["val_scores"][-3:]))}
+        emit(phase="train_demo", card=smi_line, epochs=DEMO_EPOCHS, windows=len(tr) + len(va),
+             train=len(tr), val=len(va), bar=DEMO_BAR, **stages)
+        for select, st in stages.items():
+            require(abs(st["rel"]) <= DEMO_BAR, "train_demo",
+                    f"{select}: last-3-epoch train score {st['train_last3']} vs the JAX "
+                    f"record's {st['jax_train_last3']}")
+
+        # -- 13. the checkpoint the demo wrote, swept through K1 ----------------------
+        trained, _ = load_model_from_dir(Path(tmp) / "nsdiff/trained_model", device="cuda")
+        cfg = read_model_config(Path(tmp) / "nsdiff/trained_model")
+        slbp = load_dynamic_data(next((DEMO / "slbp_data").rglob("*.pt")), dynamic_type="SLBP")
+        series, tdata = sample_time_series(slbp["torch_time_series"], slbp["time_data"],
+                                           cfg["dataset"]["sampling_t"])
+        slbp_w, _ = sliding_windows(series, tdata, cfg["dataset"]["windows"], 200)
+        zero_counts()
+        t_sweep, (demo_mpv, _) = host_s(lambda: fast_mpv_sweep(
+            trained, slbp_w, cfg["dataset"]["pred_len"], chunk_windows=4))
+        demo_k1 = fused_denoiser_rows.launches
+        n_steps = trained.diffusion_steps * -(-len(slbp_w) // 4)
+        emit(phase="train_then_sweep", card=smi_line, windows=len(slbp_w), seconds=t_sweep,
+             mpv=demo_mpv.tolist(), k1_launches=demo_k1)
+        require(demo_k1 == n_steps, "train_then_sweep",
+                f"K1 launched {demo_k1} times, expected {n_steps}")
+        require(demo_mpv.shape == (len(slbp_w),) and np.isfinite(demo_mpv).all()
+                and (demo_mpv > 0).all(), "train_then_sweep", f"bad MPV {demo_mpv}")
 
     def row(name, src, replaces, launches, err, ms, plain, bound):
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,

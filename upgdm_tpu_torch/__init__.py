@@ -8,9 +8,10 @@ Importing the package pulls in ``torch``, ``numpy`` and ``yaml`` only — never
 ``jax``, ``flax``, ``optax`` or anything of ``upgdm_tpu``.
 
 Entry points (``diffusion_models``, ``NsDiffModel``, ``TMDMModel``,
-``load_model_from_dir``, ``fast_mpv_sweep``, ``run_evaluation_cache``) run on
-``"cuda"`` unless the caller passes ``device="cpu"``; with no card and no
-explicit CPU device they raise.
+``load_model_from_dir``, ``fast_mpv_sweep``, ``run_evaluation_cache``,
+``train.loop.run_training``, ``python -m upgdm_tpu_torch.cli.train_timeseries``)
+run on ``"cuda"`` unless the caller passes ``device="cpu"``; with no card and
+no explicit CPU device they raise.
 """
 from .models.factory import diffusion_models
 

@@ -4,16 +4,20 @@ Counterpart of ``upgdm_tpu/models/base.py``. A wrapper holds its torch
 modules in one ``nn.ModuleDict`` (``self.net``) whose top-level names are the
 JAX package's param-tree roots (``cond_pred_model``, ``cond_pred_model_g``,
 ``enc_embedding``, ``model``), and keeps the reference's stateful surface:
-scalers, ``state_dict``/``load_state_dict`` over the flax-named flat dict, and
-the sampling dtype knobs.
+scalers, ``state_dict``/``load_state_dict`` over the flax-named flat dict,
+the sampling dtype knobs and the training contract (``trainable_mask`` by
+top-level name, ``antithetic_t``, ``weights_changed``).
 
 RNG: an explicit ``torch.Generator`` on the model's device, seeded from
-``seed``, replaces the JAX package's fold-in key counter.
+``seed``, replaces the JAX package's fold-in key counter. Fresh weights are
+drawn from ``seed`` with flax's initialisers (``init_like_flax``), so a run
+from scratch starts from the JAX package's distributions.
 """
 from __future__ import annotations
 
 import copy
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -91,10 +95,16 @@ class DiffusionWrapperBase:
         for k in SCALER_KEYS:
             flat.pop(k, None)
         self.net.load_state_dict(torch_state_from_flax(flat), strict=strict)
+        self.weights_changed()
+
+    def weights_changed(self) -> None:
+        """Drop the cast copies of ``_cast``: call after the weights of
+        ``self.net`` change in place (an optimizer step, a load)."""
         self._cast_cache = {}
 
     def _cast(self, name: str, dtype: torch.dtype) -> nn.Module:
-        """net[name], or a cached copy of it cast to ``dtype``."""
+        """net[name], or a cached copy of it cast to ``dtype`` (valid until
+        ``weights_changed``)."""
         if dtype == torch.float32:
             return self.net[name]
         key = (name, dtype)
@@ -132,9 +142,42 @@ class DiffusionWrapperBase:
         )
         return batch_x, batch_y
 
+    # -- training contract --------------------------------------------------
+    def trainable_mask(self, select: Optional[str] = None) -> Dict[str, bool]:
+        """{top-level name of ``self.net``: trained or frozen}."""
+        raise NotImplementedError
+
+    def antithetic_t(self, n: int, num_timesteps: int, generator=None) -> torch.Tensor:
+        """Antithetic timesteps (NsDiff_model.py:149-152): n // 2 + 1 draws
+        from [0, T) followed by their mirrors T - 1 - t, cut to n."""
+        t = torch.randint(0, num_timesteps, (n // 2 + 1,), device=self.device,
+                          generator=generator if generator is not None else self.generator)
+        return torch.cat([t, num_timesteps - 1 - t])[:n]
+
     @staticmethod
-    def init_series_conv(module: nn.Module) -> None:
-        """He-normal Projector convolutions, as flax initialises them."""
+    @torch.no_grad()
+    def init_like_flax(module: nn.Module) -> None:
+        """Flax's default initialisers, drawn from the global stream: Dense
+        kernels lecun-normal and Conv kernels (the Projector's
+        ``series_conv_kernel`` too) he-normal, both truncated at two standard
+        deviations; biases zero; LayerNorm scale one. The gate tables of
+        ``ConditionalLinear`` keep their own U(0, 1)."""
+
+        def truncated(w, fan_in, scale):
+            # the standard normal truncated to (-2, 2) has std .8796...
+            nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0)
+            w.mul_(math.sqrt(scale / fan_in) / 0.87962566103423978)
+
+        for name, m in module.named_modules():
+            if isinstance(m, nn.Linear):
+                truncated(m.weight, m.in_features, 1.0)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Conv1d):
+                truncated(m.weight, m.in_channels * m.kernel_size[0], 2.0)
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
         for name, prm in module.named_parameters():
-            if name.endswith("series_conv_kernel"):
-                nn.init.normal_(prm, std=(2.0 / (prm.shape[1] * prm.shape[2])) ** 0.5)
+            if name.endswith("series_conv_kernel"):  # [1, S, k]: fan_in S * k
+                truncated(prm, prm.shape[1] * prm.shape[2], 2.0)

@@ -2,7 +2,7 @@
 
 Counterpart of ``DataEmbedding`` in ``upgdm_tpu/models/embedding.py``: a
 circular Conv1d (k=3, no bias) over time plus the fixed sin/cos position
-table. Dropout is inert at inference and not modelled.
+table, then dropout (active only when a generator is passed).
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .dropout import Dropout
 
 __all__ = ["positional_encoding_table", "CircularConv1d", "TokenEmbedding", "DataEmbedding"]
 
@@ -49,15 +51,17 @@ class TokenEmbedding(nn.Module):
 
 
 class DataEmbedding(nn.Module):
-    """Token conv + fixed positional table ([B, T, c_in] -> [B, T, d])."""
+    """Token conv + fixed positional table, then dropout ([B, T, c_in] -> [B, T, d])."""
 
-    def __init__(self, c_in: int, d_model: int, max_len: int = 5000):
+    def __init__(self, c_in: int, d_model: int, dropout: float = 0.1, max_len: int = 5000):
         super().__init__()
         self.TokenEmbedding_0 = TokenEmbedding(c_in, d_model)
+        self.dropout = Dropout(dropout)
         self.register_buffer(
             "pe", torch.from_numpy(positional_encoding_table(max_len, d_model)),
             persistent=False,
         )
 
-    def forward(self, x):
-        return self.TokenEmbedding_0(x) + self.pe[: x.shape[1]].to(x.dtype)[None]
+    def forward(self, x, gen=None):
+        out = self.TokenEmbedding_0(x) + self.pe[: x.shape[1]].to(x.dtype)[None]
+        return self.dropout(out, gen)

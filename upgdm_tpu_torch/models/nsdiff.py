@@ -1,7 +1,7 @@
 """NsDiff — non-stationary diffusion with learned mean f(x) and variance g(x).
 
-Counterpart of the sampling surface of ``upgdm_tpu/models/nsdiff.py``:
-f(x) (NSTransformer) and g(x) (SigmaEstimation) run once per batch, then an
+Counterpart of ``upgdm_tpu/models/nsdiff.py``. Sampling: f(x)
+(NSTransformer) and g(x) (SigmaEstimation) run once per batch, then an
 S-member ensemble of the T-step heteroscedastic reverse chain runs as one
 written-out batch of S*B rows (the JAX package's ``vmap``).
 
@@ -16,8 +16,12 @@ Denoiser per step:
     the JAX package's flax arm does.
 The chain state and the posterior arithmetic stay float32 on both.
 
-Training (``loss_fn``, the pretrain stages, ``NsDiffVariants``) is not
-ported yet.
+Training: the three-stage protocol (pretrain_f -> pretrain_g -> NsDiff_model
+with ``load_pretrain``) is ``loss_fn(..., select)`` plus ``trainable_mask``,
+which ``train/loop.py::run_training`` turns into frozen and optimised
+modules; ``NsDiffVariants`` are the ablations. The loss runs the plain
+modules with autograd on both devices (the JAX package has no backward
+kernel).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Optional
 import torch
 
 from ..ops import diffusion as D
+from ..ops.rolling import wv_sigma_trailing
 from ..ops.kernels.fused_denoiser import (
     check_dtypes,
     denoiser_gammas,
@@ -34,20 +39,29 @@ from ..ops.kernels.fused_denoiser import (
     step_weights,
 )
 from ..ops.schedules import NsDiffSchedule
+from ..utils.io import load_checkpoint
+from ..utils.weights import torch_state_from_flax
 from .base import EPS, DiffusionWrapperBase
 from .denoise import NsDiffDenoiser
 from .ns_transformer import NSTransformer
 from .sigma_estimation import SigmaEstimation
 
-__all__ = ["NsDiffModel"]
+__all__ = ["NsDiffModel", "NsDiffVariants"]
 
 
 class NsDiffModel(DiffusionWrapperBase):
     """NsDiff for ``train_model_select`` in {'NsDiff_model', 'pretrain_f',
-    'pretrain_g'}; weights are random from ``seed`` until loaded."""
+    'pretrain_g'}; weights are random from ``seed`` until loaded.
+
+    A pretrain stage holds only its own module (its checkpoint is that
+    subtree). The NsDiff_model stage with ``load_pretrain`` takes g(x) from
+    ``pretrain_g_path`` and, with ``load_pretrain_f`` too, f(x) from
+    ``pretrain_f_path`` (directories holding ``model_trained``)."""
 
     def __init__(self, net_param: dict, train_model_select: str = "NsDiff_model",
-                 seed: int = 0, has_f: bool = True, has_g: bool = True, device=None):
+                 pretrain_f_path: Optional[str] = None, pretrain_g_path: Optional[str] = None,
+                 seed: int = 0, has_f: bool = True, has_g: bool = True,
+                 wo_uans: bool = False, device=None):
         super().__init__(net_param, seed=seed, device=device)
         p = self.net_param
         self.train_model_select = train_model_select
@@ -62,6 +76,7 @@ class NsDiffModel(DiffusionWrapperBase):
         elif train_model_select == "pretrain_g":
             has_f, has_g, has_denoiser = False, True, False
         self.has_f, self.has_g, self.has_denoiser = has_f, has_g, has_denoiser
+        self.wo_uans = wo_uans
 
         self.sched = NsDiffSchedule.create(
             p.get("diffusion_schedule", "linear"),
@@ -85,28 +100,45 @@ class NsDiffModel(DiffusionWrapperBase):
                     e_layers=p.get("e_layers", 2),
                     d_layers=p.get("d_layers", 1),
                     d_ff=p.get("d_ff", 256),
+                    dropout=p.get("dropout", 0.05),
                     activation=p.get("activation", "gelu"),
                     p_hidden_dims=tuple(p.get("p_hidden_dims", (64, 64))),
                     p_hidden_layers=p.get("p_hidden_layers", 2),
                 )
-                self.init_series_conv(self.net["cond_pred_model"])
             if has_g:
                 self.net["cond_pred_model_g"] = SigmaEstimation(
                     self.windows, self.pred_len, self.dataset_nf, 512, self.rolling_length
                 )
             if has_denoiser:
                 self.net["model"] = NsDiffDenoiser(self.dataset_nf, self.diffusion_steps)
+            self.init_like_flax(self.net)
         self.net.to(self.device).eval()
+
+        if train_model_select == "NsDiff_model" and p.get("load_pretrain"):
+            if pretrain_g_path:
+                self._load_pretrain("cond_pred_model_g", pretrain_g_path)
+            if pretrain_f_path and p.get("load_pretrain_f"):
+                self._load_pretrain("cond_pred_model", pretrain_f_path)
+
+    def _load_pretrain(self, name: str, path) -> None:
+        """net[name] from the ``name.`` subtree of ``<path>/model_trained``
+        (a pretrain stage's or any full checkpoint; other keys are left)."""
+        _, sd = load_checkpoint(str(path) + "/model_trained")
+        prefix = name + "."
+        sub = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        self.net[name].load_state_dict(torch_state_from_flax(sub), strict=True)
+        self.weights_changed()
 
     # ------------------------------------------------------------------
     @property
     def denoiser(self) -> Optional[NsDiffDenoiser]:
         return self.net["model"] if self.has_denoiser else None
 
-    def _apply_f(self, batch_x, dtype=torch.float32):
+    def _apply_f(self, batch_x, dtype=torch.float32, gen=None):
+        """f(x) in ``dtype`` (``gen`` turns dropout on), returned float32."""
         if not self.has_f:
             return batch_x.new_zeros(batch_x.shape[0], self.pred_len, self.dataset_nf)
-        y0_hat, _ = self._cast("cond_pred_model", dtype)(batch_x.to(dtype))
+        y0_hat, _ = self._cast("cond_pred_model", dtype)(batch_x.to(dtype), gen)
         return y0_hat.float()
 
     def _apply_g(self, batch_x, dtype=torch.float32):
@@ -207,3 +239,95 @@ class NsDiffModel(DiffusionWrapperBase):
         batch_x, batch_y = self.split_batch(batch)
         outs = self.sample_fn(batch_x, self.generator, self.n_z_samples, use_gx_directly)
         return outs, batch_y
+
+    # -- training ---------------------------------------------------------
+    def loss_fn(self, batch, select: Optional[str] = None, train: bool = True,
+                generator: Optional[torch.Generator] = None, t=None, noise=None):
+        """Single-step loss of any stage for batch [B, windows + pred_len, N]
+        (NsDiff_model.py:111-179; variants :336-402): pretrain_f MSE,
+        pretrain_g MSE of the square roots against the trailing variance,
+        else the KL step plus the f and g terms of the modules it has.
+
+        ``train`` turns dropout on; draws come from ``generator`` (default
+        the model's). ``t`` [B] and ``noise`` [B, pred_len, N] (the standard
+        normal before its scaling) are test seams, drawn when not given."""
+        select = select or self.train_model_select
+        gen = generator if generator is not None else self.generator
+        drop = gen if train else None
+        batch = self.as_batch(batch)
+        batch_x = batch[:, : self.windows, :]
+        batch_y = batch[:, self.windows : self.windows + self.pred_len, :]
+        if select == "pretrain_f":
+            return torch.mean((self._apply_f(batch_x, gen=drop) - batch_y) ** 2)
+        y_sigma = wv_sigma_trailing(
+            torch.cat([batch_x, batch_y], dim=1), self.rolling_length
+        )[:, -self.pred_len :, :] + EPS
+        if select == "pretrain_g":
+            return torch.mean((torch.sqrt(self._apply_g(batch_x)) - torch.sqrt(y_sigma)) ** 2)
+
+        sched = self._sched_dev
+        if t is None:
+            t = self.antithetic_t(batch.shape[0], sched.num_timesteps, gen)
+        t = torch.as_tensor(t, dtype=torch.long, device=self.device)
+        y0_hat = self._apply_f(batch_x, gen=drop)
+        gx = self._apply_g(batch_x) + EPS
+        loss1 = torch.mean((y0_hat - batch_y) ** 2) if self.has_f else 0.0
+        loss2 = torch.mean((torch.sqrt(gx) - torch.sqrt(y_sigma)) ** 2) if self.has_g else 0.0
+        e = (torch.randn(batch_y.shape, generator=gen, device=self.device) if noise is None
+             else torch.as_tensor(noise, dtype=torch.float32, device=self.device))
+        c = D.nsdiff_gather(sched, t, batch_y)
+        y_t = D.nsdiff_q_sample(batch_y, y0_hat, sched, t,
+                                e * torch.sqrt(D.nsdiff_forward_noise(c, gx, y_sigma)))
+        output, sigma_theta = self.net["model"](y_t, y0_hat, gx, t)
+        kl = torch.mean((e - output) ** 2)
+        if not self.wo_uans:
+            ratio = D.nsdiff_sigma_tilde(c, gx, y_sigma) / (sigma_theta + EPS)
+            kl = kl + torch.mean(ratio) - torch.mean(torch.log(ratio))
+        return kl + loss1 + loss2
+
+    def trainable_mask(self, select: Optional[str] = None):
+        """The stage's own module in a pretrain stage; only the denoiser with
+        ``freeze_pretrain``; else everything (NsDiff_model.py:86-93)."""
+        select = select or self.train_model_select
+        freeze = self.net_param.get("freeze_pretrain", False)
+        if select == "pretrain_f":
+            return {k: k == "cond_pred_model" for k in self.net}
+        if select == "pretrain_g":
+            return {k: k == "cond_pred_model_g" for k in self.net}
+        return {k: (k == "model") if freeze else True for k in self.net}
+
+    @torch.no_grad()
+    def training_step(self, batch):
+        """The stage's loss on batch, dropout off (reference surface)."""
+        return self.loss_fn(batch, train=False)
+
+    @torch.no_grad()
+    def pretrain_f(self, batch):
+        return self.loss_fn(batch, "pretrain_f", train=False)
+
+    @torch.no_grad()
+    def pretrain_g(self, batch):
+        return self.loss_fn(batch, "pretrain_g", train=False)
+
+
+class NsDiffVariants(NsDiffModel):
+    """Ablation variants (NsDiff_model.py:271-495): ``train_model_select`` in
+    {'Guassian', 'cond_mean', 'cond_var', 'wo_UANS'}; every module trains."""
+
+    _VARIANTS = {
+        "Guassian": dict(has_f=False, has_g=False, wo_uans=False),
+        "cond_mean": dict(has_f=True, has_g=False, wo_uans=False),
+        "cond_var": dict(has_f=False, has_g=True, wo_uans=False),
+        "wo_UANS": dict(has_f=True, has_g=True, wo_uans=True),
+    }
+
+    def __init__(self, net_param: dict, train_model_select: str, seed: int = 0, device=None):
+        if train_model_select not in self._VARIANTS:
+            raise ValueError(
+                "train_model_select should be in Guassian/cond_mean/cond_var/wo_UANS")
+        super().__init__(net_param, train_model_select="NsDiff_model", seed=seed, device=device,
+                         **self._VARIANTS[train_model_select])
+        self.variant = train_model_select
+
+    def trainable_mask(self, select=None):
+        return {k: True for k in self.net}

@@ -1,6 +1,6 @@
 """TMDM — conditional diffusion steered by a VAE-regularised NS-Transformer.
 
-Counterpart of the sampling surface of ``upgdm_tpu/models/tmdm.py``: the
+Counterpart of ``upgdm_tpu/models/tmdm.py``. Sampling: the
 conditional predictor (``NSTransformerVAE``, deterministic at sampling time)
 runs once per batch and gives ``y_0_hat`` over the label_len + pred_len
 target segment; then an S-member ensemble of the T-step CARD reverse chain
@@ -20,12 +20,14 @@ Denoiser per step:
     JAX package either, and the plain module runs on both devices.
 The chain state and the posterior arithmetic stay float32 on both.
 
-``loss_fn``, ``log_normal`` and ``trainable_mask`` wait for the training
-slice; ``convert_reference_state_dict`` waits for the checkpoint-import
-slice.
+Training: ``loss_fn`` (tmdm_adapter.py:90-114) is the CARD noise MSE plus
+``k_cond`` x (the Gaussian log-likelihood of y_0_hat + ``k_z`` x the VAE's
+KL), with autograd through the plain modules; every module trains.
+``convert_reference_state_dict`` waits for the checkpoint-import slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -40,7 +42,13 @@ from .denoise import TMDMDenoiser
 from .embedding import DataEmbedding
 from .ns_transformer import NSTransformerVAE
 
-__all__ = ["TMDMModel"]
+__all__ = ["TMDMModel", "log_normal"]
+
+
+def log_normal(x, mu, var_scalar: float = 1.0):
+    """0.5 * mean(log 2pi + log var + (x-mu)^2/var) (tmdm_adapter.py:13-20)."""
+    var = var_scalar + 1e-8
+    return 0.5 * torch.mean(math.log(2.0 * math.pi) + math.log(var) + (x - mu) ** 2 / var)
 
 
 class TMDMModel(DiffusionWrapperBase):
@@ -93,12 +101,13 @@ class TMDMModel(DiffusionWrapperBase):
                 e_layers=p.get("e_layers", 2),
                 d_layers=p.get("d_layers", 1),
                 d_ff=p.get("d_ff", 128),
+                dropout=p.get("dropout", 0.05),
                 activation=p.get("activation", "gelu"),
                 p_hidden_dims=tuple(p.get("p_hidden_dims", (64, 64))),
                 p_hidden_layers=p.get("p_hidden_layers", 2),
             )
-            self.init_series_conv(self.net["cond_pred_model"])
-            self.net["enc_embedding"] = DataEmbedding(self.dataset_nf, x_embed_dim)
+            self.net["enc_embedding"] = DataEmbedding(self.dataset_nf, x_embed_dim,
+                                                      p.get("dropout", 0.05))
             # n_steps = timesteps + 1 (tmdm_model.py:26)
             self.net["model"] = TMDMDenoiser(
                 self.dataset_nf,
@@ -107,6 +116,7 @@ class TMDMModel(DiffusionWrapperBase):
                 cat_y_pred=p.get("cat_y_pred", True),
                 x_dim=x_embed_dim,
             )
+            self.init_like_flax(self.net)
         self.net.to(self.device).eval()
 
     # ------------------------------------------------------------------
@@ -195,3 +205,44 @@ class TMDMModel(DiffusionWrapperBase):
         """(outs [B, O, N, n_z_samples], batch_y or None)."""
         batch_x, batch_y = self.split_batch(batch)
         return self.sample_fn(batch_x, self.generator, self.n_z_samples), batch_y
+
+    # -- training ---------------------------------------------------------
+    def loss_fn(self, batch, select: Optional[str] = None, train: bool = True,
+                generator: Optional[torch.Generator] = None, t=None, noise=None,
+                reparam_eps=None):
+        """The training loss on batch [B, windows + pred_len, N]
+        (tmdm_adapter.py:90-114) over the label_len + pred_len target.
+
+        ``train`` turns dropout and the VAE's reparameterisation on (else z
+        is z_mean); draws come from ``generator`` (default the model's).
+        ``t`` [B], ``noise`` [B, label_len + pred_len, N] and ``reparam_eps``
+        (the averaged normal of ``NSTransformerVAE``, shaped like z_mean) are
+        test seams, drawn when not given. ``select`` is accepted for the
+        training loop's sake and ignored."""
+        gen = generator if generator is not None else self.generator
+        drop = gen if train else None
+        batch = self.as_batch(batch)
+        batch_x = batch[:, : self.windows, :]
+        target_y = batch[:, self.windows : self.windows + self.pred_len, :]
+        batch_y = torch.cat([batch_x[:, -self.label_len :, :], target_y], dim=1)
+        _, y_0_hat, kl_loss, _ = self.net["cond_pred_model"](
+            batch_x, deterministic=not train, generator=gen, reparam_eps=reparam_eps, gen=drop)
+        loss_vae_all = log_normal(batch_y, y_0_hat) + self.k_z * kl_loss
+
+        if t is None:
+            t = self.antithetic_t(batch.shape[0], self.sched.num_timesteps, gen)
+        t = torch.as_tensor(t, dtype=torch.long, device=self.device)
+        noise = (torch.randn(batch_y.shape, generator=gen, device=self.device) if noise is None
+                 else torch.as_tensor(noise, dtype=torch.float32, device=self.device))
+        y_t = D.card_q_sample(batch_y, y_0_hat, self.sched, t, noise)
+        emb = self.net["enc_embedding"](batch_x, drop)
+        output = self.net["model"](emb, y_t, y_0_hat, t)
+        return torch.mean((noise - output) ** 2) + self.k_cond * loss_vae_all
+
+    def trainable_mask(self, select=None):
+        return {k: True for k in self.net}
+
+    @torch.no_grad()
+    def training_step(self, batch):
+        """The loss on batch, dropout and reparameterisation off."""
+        return self.loss_fn(batch, train=False)

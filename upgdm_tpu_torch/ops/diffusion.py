@@ -1,8 +1,9 @@
-"""NsDiff and CARD (TMDM) reverse-diffusion math (the sampling part).
+"""NsDiff and CARD (TMDM) diffusion math: the forward (training) terms and
+the reverse chains.
 
 Counterpart of the NsDiff and TMDM/CARD sections of
-``upgdm_tpu/ops/diffusion.py`` (nsdiff_utils.py:40-92,111-158,163-239,271-284
-and tmdm_diffusion_utils.py:42-119 of the reference). A reverse chain is a
+``upgdm_tpu/ops/diffusion.py`` (nsdiff_utils.py:40-158,163-239,271-284 and
+tmdm_diffusion_utils.py:42-119 of the reference). A reverse chain is a
 Python loop over t; the denoiser is injected as ``model_fn(y, t)`` so the
 same loop runs the plain module on the CPU and the fused kernel on the card.
 
@@ -26,6 +27,9 @@ __all__ = [
     "NsDiffCoeffs",
     "nsdiff_gather",
     "nsdiff_gammas",
+    "nsdiff_forward_noise",
+    "nsdiff_sigma_tilde",
+    "nsdiff_q_sample",
     "nsdiff_p_sample_loop",
     "card_q_sample",
     "card_p_sample_loop",
@@ -53,6 +57,17 @@ class NsDiffCoeffs(NamedTuple):
     one_minus_abar_sqrt_t: torch.Tensor
 
 
+def _gather(arr, t, like: torch.Tensor) -> torch.Tensor:
+    """arr[t] (float32) shaped to broadcast against ``like``; ``arr`` is a
+    numpy array or a tensor, ``t`` a step or one step per batch row."""
+    if isinstance(t, torch.Tensor):
+        t = t.to(like.device, torch.long)
+    if not isinstance(arr, torch.Tensor):
+        arr = torch.as_tensor(np.asarray(arr, np.float32))
+    c = arr.to(like.device)[t]
+    return c.reshape(c.shape + (1,) * (like.ndim - c.ndim)) if c.ndim else c
+
+
 def nsdiff_gather(sched, t, like: torch.Tensor) -> NsDiffCoeffs:
     """Gather all NsDiff per-step coefficients (float32) for scalar or
     per-batch t, shaped to broadcast against ``like``.
@@ -60,15 +75,7 @@ def nsdiff_gather(sched, t, like: torch.Tensor) -> NsDiffCoeffs:
     The schedule's arrays may be numpy or tensors already on the data's
     device (``schedule_on``), which keeps the per-step gather off the
     host-to-device link."""
-    if isinstance(t, torch.Tensor):
-        t = t.to(like.device, torch.long)
-
-    def g(arr):
-        if not isinstance(arr, torch.Tensor):
-            arr = torch.as_tensor(np.asarray(arr, np.float32))
-        c = arr.to(like.device)[t]
-        return c.reshape(c.shape + (1,) * (like.ndim - c.ndim)) if c.ndim else c
-
+    g = lambda arr: _gather(arr, t, like)
     return NsDiffCoeffs(
         alpha_t=g(sched.alphas),
         betas_tilde_t=g(sched.betas_tilde),
@@ -85,6 +92,26 @@ def _nsdiff_sigma12(c: NsDiffCoeffs, gx, y_sigma):
     sigma_1 = (1.0 - c.alpha_t) ** 2 * gx + c.alpha_t * (1.0 - c.alpha_t) * y_sigma
     sigma_2 = (c.betas_bar_m_1_t - c.betas_tilde_m_1_t) * gx + c.betas_tilde_m_1_t * y_sigma
     return sigma_1, sigma_2
+
+
+def nsdiff_forward_noise(c: NsDiffCoeffs, gx, y_sigma):
+    """Heteroscedastic forward-noise variance (nsdiff_utils.py:58-64)."""
+    return (c.betas_bar_t - c.betas_tilde_t) * gx + c.betas_tilde_t * y_sigma
+
+
+def nsdiff_sigma_tilde(c: NsDiffCoeffs, gx, y_sigma):
+    """Posterior variance target of the KL loss (nsdiff_utils.py:75-78)."""
+    s1, s2 = _nsdiff_sigma12(c, gx, y_sigma)
+    return (s1 * s2) / (c.alpha_t * s2 + s1)
+
+
+def nsdiff_q_sample(y, y_0_hat, sched, t, noise):
+    """Forward sample with the y0_hat-shifted mean (nsdiff_utils.py:96-107).
+
+    As in the reference, ``noise`` is added as given: it already carries
+    sqrt(forward_noise)."""
+    sqrt_abar = _gather(sched.alphas_bar_sqrt, t, y)
+    return sqrt_abar * y + (1.0 - sqrt_abar) * y_0_hat + noise
 
 
 def nsdiff_gammas(c: NsDiffCoeffs, gx, y_sigma):
