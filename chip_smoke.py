@@ -24,7 +24,14 @@ float32 and ``train_dtype="bfloat16"``, with the card's loss and gradients
 held to the port's CPU run on one batch; the demo's three-stage protocol
 (``examples/slbp_demo.py``) on the committed SLBP trajectory through
 ``run_training``, each stage's score held to the committed JAX record; and
-the checkpoint it wrote swept through K1. Every phase that fails exits
+the checkpoint it wrote swept through K1. The bf16-activation arms
+(``act_dtype="bfloat16"``) of K1 and K2 are held to their twins like the
+other arms, against the float32-activation arms at the JAX package's bars,
+and timed; the ``uncertainty_ews`` facade runs the trained SIS model from its
+checkpoint directory and trajectory file, straight from the device, through
+its cache and sidecar, and with bf16 activations (K1's act arm); a seeded
+pretrain_f of the demo runs twice with equal records, and the float32 step
+is timed with and without deterministic cuDNN. Every phase that fails exits
 non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
 last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
@@ -86,6 +93,7 @@ DEMO_STAGES = (("pretrain_f", "pre_model_F"), ("pretrain_g", "pre_model_G"),
 
 SIS_MODEL = REPO / "demo_fig1/ews_results/model_compare/NsDiff/SIS"
 SIS_DATA = REPO / "demo_fig1/spdata_sde_SIS/barabasi_albert_12_0/SIS_dynamic_eta0.0001d0.5_increase.pt"
+FACADE_REPS = 7  # timed uncertainty_ews calls; the median is reported, with min and max
 
 
 def emit(**kw):
@@ -222,34 +230,48 @@ def worst_err(name, got, want, tol, where):
     return worst
 
 
-def check_step_kernel(which, dev, seed=2):
+def check_step_kernel(which, dev, seed=2, act="float32"):
     """K1 (``which="k1"``) or K3 (``"k3"``) against its twin over RAGGED_M x
     WIDTHS x CASES (the module's own gates at GATE_STEPS for ``random``) in
-    both matmul types; returns {mm: max|err|} or raises AssertionError naming
-    the first case over TOL."""
+    both matmul types, or for K1's ``act="bfloat16"`` in bf16 matmuls (the
+    only type it takes); returns {mm: max|err|} or raises AssertionError
+    naming the first case over TOL. The bf16-activation arm is held to
+    TOL["bfloat16"] too: kernel and twin round the same operations, and an
+    activation that the special-function unit's ex2 / lg2 / rsqrt or a sum
+    in another order puts across a bf16 rounding boundary moves eps by one
+    bf16 step seen through the head, as in the float32-activation arm. That
+    bar cannot tell the arm from one that rounds less, so at 65,536 rows and
+    more it is also held apart from the float32-activation arm
+    (``arms_apart``)."""
     import torch
 
     from upgdm_tpu_torch.ops.kernels.fused_denoiser import denoiser_gammas, step_weights
 
     cls, weights_of, rows, ref, tup = step_kernel(which)
+    acts = {"act_dtype": act} if which == "k1" else {}
+    mms = TOL if act == "float32" else ("bfloat16",)
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.manual_seed(seed)
-    err = {"float32": 0.0, "bfloat16": 0.0}
+    err = {mm: 0.0 for mm in mms}
     with torch.no_grad():
         for Fdim in WIDTHS:
             den = cls(Fdim, N_STEPS).to(dev).eval()
             for case in CASES:
                 for t in GATE_STEPS if case == "random" else (7,):
                     W, G = edge_case(which, case, weights_of(den), denoiser_gammas(den, t), gen)
-                    kw = {mm: step_weights(W, getattr(torch, mm)) for mm in TOL}
+                    kw = {mm: step_weights(W, getattr(torch, mm)) for mm in mms}
                     for M in RAGGED_M:
                         x = step_rows(which, M, Fdim, gen, dev)
-                        for mm in TOL:
-                            got = tup(rows(x, G, kw[mm], matmul_dtype=mm))
-                            want = tup(ref(x, G, W, matmul_dtype=mm))
-                            err[mm] = max(err[mm], worst_err(
-                                which.upper(), got, want, TOL[mm],
-                                f"F={Fdim} M={M} {case} t={t} {mm}"))
+                        for mm in mms:
+                            where = f"F={Fdim} M={M} {case} t={t} {mm} act {act}"
+                            got = tup(rows(x, G, kw[mm], matmul_dtype=mm, **acts))
+                            want = tup(ref(x, G, W, matmul_dtype=mm, **acts))
+                            err[mm] = max(err[mm], worst_err(which.upper(), got, want, TOL[mm],
+                                                             where))
+                            if act != "float32" and M >= ACT_SEP_ROWS:
+                                other = rows(x, G, kw[mm], matmul_dtype=mm)
+                                for name, a, b, c in zip(("eps", "sigma"), got, want, other):
+                                    arms_apart(f"K1 {name}", err, a, b, c, where)
     return err
 
 
@@ -301,6 +323,43 @@ def check_series_branch(which, dev, seed=4):
 # sums in another order, carried through the steps).
 CHAIN_F32 = {"rtol": 2e-5, "atol": 2e-6}
 CHAIN_NOISE = {"rtol": 1e-4, "atol": 1e-4}
+# bf16 activations against float32 ones: the JAX package's own bars, K1
+# (tests/test_pallas_denoiser.py:63-65) and the chain
+# (tests/test_chain_resident.py:122-126)
+ACT_EPS_ABS, ACT_SIGMA_REL, CHAIN_ACT_REL = 1e-2, 1e-2, 0.05
+# bf16 activations against their twin, beyond the bar on max |d|: kernel and
+# twin round the same operations, so an output differs only where ex2 / lg2 /
+# rsqrt or a sum in another order put one of its row's roundings across a bf16
+# boundary. On the H100 (NVIDIA H100 80GB HBM3, 700 W) at 65,537 and 4.8 M
+# rows, 99.90% or more of eps, sigma (K1) and y_0 (K2, both matmul types, 20
+# steps) equal the twin's within 1e-6 (1 + |twin|), and mean |d| is at most
+# 0.013 of the mean distance to the float32-activation arm. A build without
+# the bf16 rounding of 1 + e in the softplus leaves 0-11% of them on the twin
+# and 0.21-49 of that distance (random rows and rows below zero; above +8 that
+# rounding changes nothing), where on random rows its max |d| passes the bar.
+# Bars: 99% on the twin, mean |d| at most 0.05 of the distance, from 65,536
+# rows.
+ACT_SAME_RTOL, ACT_SAME_FRAC, ACT_SEP, ACT_SEP_ROWS = 1e-6, 0.99, 0.05, 65536
+
+
+def arms_apart(name, stats, got, twin, float32_act, where):
+    """Hold a bf16-activation output to its twin closer than a bar on
+    max |d| can: at least ACT_SAME_FRAC of the elements within ACT_SAME_RTOL
+    (1 + |twin|) of the twin's, and mean |got - twin| at most ACT_SEP x mean
+    |got - float32_act| (the same kernel's float32-activation output). Keeps
+    the smallest share and the largest ratio in ``stats``; AssertionError
+    below either bar."""
+    d = (got - twin).abs()
+    same = (d <= ACT_SAME_RTOL * (1.0 + twin.abs())).float().mean().item()
+    off, apart = d.mean().item(), (got - float32_act).abs().mean().item()
+    ratio = off / apart if apart > 0 else (0.0 if off == 0 else float("inf"))
+    if not (same >= ACT_SAME_FRAC and ratio <= ACT_SEP):
+        raise AssertionError(f"{name}: {same:.4%} of the elements on the twin (bar "
+                             f"{ACT_SAME_FRAC:.0%}), mean |d| {ratio:.4g} of the distance to "
+                             f"the float32-activation arm (bar {ACT_SEP}), max |d| "
+                             f"{d.max().item():.4g} at {where}")
+    stats["same_share_min"] = min(stats.get("same_share_min", 1.0), same)
+    stats["mean_ratio_max"] = max(stats.get("mean_ratio_max", 0.0), ratio)
 
 
 def chain_error_weight(tab, gx_max):
@@ -381,7 +440,7 @@ def k1_chain_zero_noise(den, y0, gx, sched, mm):
     return nsdiff_p_sample_loop(model_fn, y0, gx, schedule_on(sched, y0.device), noise=zeros)
 
 
-def check_chain_kernel(dev, seed=6):
+def check_chain_kernel(dev, seed=6, act="float32"):
     """K2 against its twin, ``fused_chain_rows_reference``. Noise-free over
     RAGGED_M x WIDTHS x ``use_gx_directly``: float32 at CHAIN_F32, bf16 at
     TOL["bfloat16"] x ``chain_error_weight``. At 65,537 rows: the float32 arm
@@ -389,18 +448,33 @@ def check_chain_kernel(dev, seed=6):
     CHAIN_NOISE; the bf16 arm likewise with the heads fixed, so that only its
     draws and posterior arithmetic show; both arms at two launch shapes under
     one seed (shared rows bit-equal); the bf16 arm against a chain of K1
-    launches at its bar; and a 100-step chain in both arms. Returns the
-    largest errors; AssertionError names the first case over its bar."""
+    launches at its bar; and a 100-step chain in both arms.
+
+    ``act="bfloat16"``: both matmul types noise-free at the bf16 bar (the
+    trunk rounds as K1's bf16-activation arm, carried by the chain). At
+    65,537 rows: ``arms_apart`` against the float32-activation chain, which
+    must differ within the JAX package's bar, mean |d| / mean |y| <
+    CHAIN_ACT_REL; and with noise on, per sample on the Philox normals at
+    the bf16 bar plus CHAIN_NOISE.
+
+    Returns the largest errors; AssertionError names the first case over its
+    bar."""
     import torch
 
     from upgdm_tpu_torch.ops.kernels.chain_resident import (
         fused_chain_rows, fused_chain_rows_reference,
     )
 
+    bf = act == "bfloat16"
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.manual_seed(seed)
-    err = {"float32": 0.0, "bfloat16": 0.0, "float32_noise": 0.0, "bfloat16_noise_stream": 0.0,
-           "bfloat16_vs_k1_chain": 0.0, "float32_T100": 0.0, "bfloat16_T100": 0.0}
+    if bf:
+        err = {"float32": 0.0, "bfloat16": 0.0, "float32_noise": 0.0, "bfloat16_noise": 0.0,
+               "rel_vs_float32_act": 0.0}
+    else:
+        err = {"float32": 0.0, "bfloat16": 0.0, "float32_noise": 0.0,
+               "bfloat16_noise_stream": 0.0, "bfloat16_vs_k1_chain": 0.0, "float32_T100": 0.0,
+               "bfloat16_T100": 0.0}
 
     def held(name, key, got, want, rtol, atol, where):
         if got.shape != want.shape or not torch.isfinite(got).all().item():
@@ -411,29 +485,50 @@ def check_chain_kernel(dev, seed=6):
         err[key] = max(err[key], (got - want).abs().max().item())
 
     with torch.no_grad():
-        for T in (N_STEPS, 100):
+        for T in (N_STEPS,) if bf else (N_STEPS, 100):
             for Fdim in WIDTHS if T == N_STEPS else (1,):
                 den, W, tables, sched, tab = chain_setup(Fdim, T, dev)
                 bar16 = TOL["bfloat16"] * chain_error_weight(tab.cpu().numpy(), 1.0)
                 err[f"bfloat16_bar_T{T}"] = bar16
                 sfx = "" if T == N_STEPS else "_T100"
+                arms = (("float32", 0.0, bar16) if bf
+                        else ("float32", CHAIN_F32["rtol"], CHAIN_F32["atol"]),
+                        ("bfloat16", 0.0, bar16))
                 for use_gx in (False, True):
                     for M in RAGGED_M if T == N_STEPS else (65537,):
                         y0, gx = chain_rows(M, Fdim, gen, dev)
-                        where = f"F={Fdim} M={M} T={T} use_gx_directly={use_gx}"
-                        for mm, rtol, atol in (("float32", CHAIN_F32["rtol"], CHAIN_F32["atol"]),
-                                               ("bfloat16", 0.0, bar16)):
+                        where = f"F={Fdim} M={M} T={T} use_gx_directly={use_gx} act {act}"
+                        for mm, rtol, atol in arms:
                             if T == 100 and mm == "float32":  # five times the steps
                                 rtol, atol = CHAIN_NOISE["rtol"], CHAIN_NOISE["atol"]
-                            got = fused_chain_rows(y0, gx, tab, 0, tables, W, T, matmul_dtype=mm,
-                                                   noise_mode="zero", use_gx_directly=use_gx)
-                            want = fused_chain_rows_reference(
-                                y0, gx, tab, tables, W, T, matmul_dtype=mm, noise_mode="zero",
-                                use_gx_directly=use_gx)
+                            kw = dict(matmul_dtype=mm, noise_mode="zero", use_gx_directly=use_gx)
+                            got = fused_chain_rows(y0, gx, tab, 0, tables, W, T, act_dtype=act,
+                                                   **kw)
+                            want = fused_chain_rows_reference(y0, gx, tab, tables, W, T,
+                                                              act_dtype=act, **kw)
                             held(f"{mm} noise-free", mm + sfx, got, want, rtol, atol, where)
+                            if bf and M >= ACT_SEP_ROWS:
+                                f32 = fused_chain_rows(y0, gx, tab, 0, tables, W, T, **kw)
+                                arms_apart(f"K2 {mm}", err, got, want, f32, where)
+                                rel = ((got - f32).abs().mean() / f32.abs().mean()).item()
+                                if not 0 < rel < CHAIN_ACT_REL:
+                                    raise AssertionError(f"K2 {mm}: act bf16 vs float32 act "
+                                                         f"{rel} at {where}")
+                                err["rel_vs_float32_act"] = max(err["rel_vs_float32_act"], rel)
                 if T != N_STEPS:
                     continue
-                # y0, gx: the last 65,537 rows. Noise on, per sample
+                # y0, gx: the last 65,537 rows
+                if bf:  # noise on, per sample
+                    for mm in TOL:
+                        got = fused_chain_rows(y0, gx, tab, 5, tables, W, T, matmul_dtype=mm,
+                                               act_dtype=act)
+                        want = fused_chain_rows_reference(y0, gx, tab, tables, W, T,
+                                                          matmul_dtype=mm, act_dtype=act,
+                                                          noise="philox", seed=5)
+                        held(f"{mm} act bf16 with Philox noise", mm + "_noise", got, want,
+                             CHAIN_NOISE["rtol"], CHAIN_NOISE["atol"] + bar16, f"F={Fdim}")
+                    continue
+                # noise on, per sample
                 got = fused_chain_rows(y0, gx, tab, 5, tables, W, T, matmul_dtype="float32")
                 want = fused_chain_rows_reference(y0, gx, tab, tables, W, T,
                                                   matmul_dtype="float32", noise="philox", seed=5)
@@ -511,11 +606,13 @@ def train_step_split(model, select, batch, dtype, reps=3, profiled=2):
         opt.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.autocast(model.device.type, dtype=torch.bfloat16, enabled=dtype != "float32"):
+        if dtype == "float32":
             loss = model.loss_fn(batch, select=select, train=True)
+        else:
+            loss = model.cast_loss(batch, torch.bfloat16, select=select, train=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        loss.float().backward()
+        loss.backward()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         opt.step()
@@ -577,6 +674,21 @@ def card_vs_cpu(card_model, cls, net_param, batch, seams):
     return rel, worst
 
 
+def determinism_cost(model, select, batch):
+    """The float32 train step's median ms without and with deterministic
+    cuDNN (``run_training``'s setting), in turns: off, on, on, off; each the
+    mean of its two."""
+    import contextlib
+
+    from upgdm_tpu_torch.train.loop import deterministic_cudnn
+
+    times = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        with deterministic_cudnn() if mode == "on" else contextlib.nullcontext():
+            times[mode].append(train_step_ms(model, select, batch, "float32")[0])
+    return {k: statistics.mean(v) for k, v in times.items()}
+
+
 def demo_split():
     """The demo's dataset and split: default_rng(0) permutation, n_train a
     multiple of 32 of 90% (examples/slbp_demo.py:75-84)."""
@@ -623,7 +735,7 @@ def main(argv=None):
     from upgdm_tpu_torch import diffusion_models
     from upgdm_tpu_torch.eval.uncertainty import (
         fast_mpv_sweep, load_dynamic_data, load_model_from_dir, mpv_reduce,
-        run_evaluation_cache,
+        run_evaluation_cache, uncertainty_ews,
     )
     from upgdm_tpu_torch.models.denoise import NsDiffDenoiser, TMDMDenoiser
     from upgdm_tpu_torch.models.nsdiff import NsDiffModel
@@ -633,7 +745,8 @@ def main(argv=None):
         schedule_table,
     )
     from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
-        denoiser_gammas, denoiser_weights, fused_denoiser_rows, step_weights,
+        denoiser_gammas, denoiser_weights, fused_denoiser_rows, fused_denoiser_rows_reference,
+        step_weights,
     )
     from upgdm_tpu_torch.ops.kernels.fused_tmdm import fused_tmdm_rows, tmdm_gammas, tmdm_weights
     from upgdm_tpu_torch.ops.kernels.roofline import bound_ms, k1_work, k2_work, k3_work
@@ -703,12 +816,47 @@ def main(argv=None):
     with torch.no_grad():
         x = step_rows("k1", M_MAIN, 1, gen, dev)
         k1_err, k1_series, k1_ms, k1_plain_ms = step_phase("k1", W, denoiser_gammas(den, 7), x)
+        k1_bound = {mm: bound(k1_work(M_MAIN), mm) for mm in TOL}
+        emit(phase="k1", card=smi_line, max_abs_err=k1_err, tol=TOL, series_rel_err=k1_series,
+             series_rtol=SERIES_RTOL, rows=M_MAIN, ms=k1_ms, plain_ms=k1_plain_ms,
+             bound_ms={k: v[0] for k, v in k1_bound.items()},
+             bound_by={k: v[1] for k, v in k1_bound.items()})
+
+        # -- 3b. K1's bf16-activation arm: the twin over ragged M, widths and
+        # edge rows, element by element on the same 4.8 M rows, against the
+        # float32-activation arm at the JAX package's bars, and its time
+        g7, kw16 = denoiser_gammas(den, 7), step_weights(W, torch.bfloat16)
+        act16 = dict(matmul_dtype="bfloat16", act_dtype="bfloat16")
+        try:
+            k1a = check_step_kernel("k1", dev, act="bfloat16")
+            where = f"the main path's {M_MAIN} rows"
+            got = fused_denoiser_rows(x, g7, kw16, **act16)
+            want = fused_denoiser_rows_reference(x, g7, W, **act16)
+            k1a["bfloat16"] = max(k1a["bfloat16"], worst_err("K1 act bf16", got, want,
+                                                             TOL["bfloat16"], where))
+            f32 = fused_denoiser_rows(x, g7, kw16, matmul_dtype="bfloat16")
+            for name, a, b, c in zip(("eps", "sigma"), got, want, f32):
+                arms_apart(f"K1 {name}", k1a, a, b, c, where)
+            del want
+            d_eps = (got[0] - f32[0]).abs().max().item()
+            d_sig = ((got[1] - f32[1]).abs() / f32[1].abs()).max().item()
+            if not (0 < d_eps < ACT_EPS_ABS and 0 < d_sig < ACT_SIGMA_REL):
+                raise AssertionError(f"K1 act bf16 vs float32 act: eps {d_eps}, sigma {d_sig}")
+            del got, f32
+        except AssertionError as exc:
+            fail("k1_act_bf16", str(exc))
+        k1a_ms = cuda_ms(lambda: fused_denoiser_rows(x, g7, kw16, **act16))
+        k1a_plain_ms = cuda_ms(lambda: fused_denoiser_rows_reference(x, g7, W, **act16),
+                               reps=3, warmup=1)
         del x
-    k1_bound = {mm: bound(k1_work(M_MAIN), mm) for mm in TOL}
-    emit(phase="k1", card=smi_line, max_abs_err=k1_err, tol=TOL, series_rel_err=k1_series,
-         series_rtol=SERIES_RTOL, rows=M_MAIN, ms=k1_ms, plain_ms=k1_plain_ms,
-         bound_ms={k: v[0] for k, v in k1_bound.items()},
-         bound_by={k: v[1] for k, v in k1_bound.items()})
+    k1a_err = k1a["bfloat16"]
+    emit(phase="k1_act_bf16", card=smi_line, max_abs_err=k1a_err, tol=TOL["bfloat16"],
+         vs_twin={"same_share_min": k1a["same_share_min"], "mean_ratio_max": k1a["mean_ratio_max"],
+                  "bars": [ACT_SAME_RTOL, ACT_SAME_FRAC, ACT_SEP]},
+         vs_float32_act={"eps_max_abs": d_eps, "sigma_max_rel": d_sig,
+                         "bars": [ACT_EPS_ABS, ACT_SIGMA_REL]},
+         rows=M_MAIN, ms=k1a_ms, ms_float32_act=k1_ms["bfloat16"], plain_ms=k1a_plain_ms,
+         bound_ms=k1_bound["bfloat16"][0], bound_by=k1_bound["bfloat16"][1])
 
     # -- 4. K2 against its plain twin ------------------------------------------
     sched = NsDiffSchedule.create("linear", STEPS, 1e-4, 2e-2)
@@ -780,10 +928,47 @@ def main(argv=None):
                 y0r, gxr, tab, tables, W, STEPS, matmul_dtype=mm, generator=tgen),
                 reps=3, warmup=1)
             k2_bound[mm] = bound(k2_work(M_MAIN, STEPS), mm)
+
+        # -- 4b. K2's bf16-activation arm in both matmul types: the twin over
+        # ragged M, widths, use_gx_directly and with Philox noise, element by
+        # element noise-free on the 4.8 M rows, and its time
+        k2a_ms, k2a_plain_ms = {}, {}
+        try:
+            k2a_err = check_chain_kernel(dev, seed=7, act="bfloat16")
+            for mm in ("float32", "bfloat16"):
+                kwa = dict(matmul_dtype=mm, act_dtype="bfloat16")
+                got = fused_chain_rows(y0r, gxr, tab, 5, tables, W, STEPS, noise_mode="zero",
+                                       **kwa)
+                want = fused_chain_rows_reference(y0r, gxr, tab, tables, W, STEPS,
+                                                  noise_mode="zero", **kwa)
+                over = off_by(got, want, 0.0, bar16)
+                where = f"{mm} at the main path's {M_MAIN} rows"
+                if not torch.isfinite(got).all().item() or over > 0:
+                    raise AssertionError(f"act bf16 chain off {bar16} by {over}, {where}")
+                k2a_err[mm] = max(k2a_err[mm], (got - want).abs().max().item())
+                f32 = fused_chain_rows(y0r, gxr, tab, 5, tables, W, STEPS, matmul_dtype=mm,
+                                       noise_mode="zero")
+                arms_apart(f"K2 {mm}", k2a_err, got, want, f32, where)
+                del got, want, f32
+        except AssertionError as exc:
+            fail("k2_act_bf16", str(exc))
+        for mm in ("float32", "bfloat16"):
+            kwa = dict(matmul_dtype=mm, act_dtype="bfloat16")
+            ops = chain_operands(tables, W, getattr(torch, mm), "bfloat16")
+            call = lambda: fused_chain_rows(y0r, gxr, tab, 5, *ops, STEPS, **kwa)
+            t_one, _ = host_s(call)
+            k2a_ms[mm] = cuda_ms(call, reps=10 if t_one < 0.1 else 3, warmup=1)
+            k2a_plain_ms[mm] = cuda_ms(lambda: fused_chain_rows_reference(
+                y0r, gxr, tab, tables, W, STEPS, generator=tgen, **kwa), reps=3, warmup=1)
         del y0r, gxr
     emit(phase="k2", card=smi_line, max_abs_err=k2_err, mpv_kernel=mpv_k, mpv_twin=mpv_p,
          mpv_rel=mpv_rel, mpv_float32_arm=mpv_32, mpv_rel_bf16_vs_f32=mpv_rel_arms, rows=M_MAIN,
          ms=k2_ms, plain_ms=k2_plain_ms, bound_ms={k: v[0] for k, v in k2_bound.items()},
+         bound_by={k: v[1] for k, v in k2_bound.items()})
+    emit(phase="k2_act_bf16", card=smi_line, max_abs_err=k2a_err, bar_noise_free=bar16,
+         bar_vs_float32_act=CHAIN_ACT_REL, rows=M_MAIN, steps=STEPS, ms=k2a_ms,
+         ms_float32_act=k2_ms, plain_ms=k2a_plain_ms,
+         bound_ms={k: v[0] for k, v in k2_bound.items()},
          bound_by={k: v[1] for k, v in k2_bound.items()})
 
     # -- 5. K3 against its plain twin ------------------------------------------
@@ -807,8 +992,8 @@ def main(argv=None):
         return ens.var(dim=-1, correction=0).mean().item()
 
     def zero_counts():
-        fused_denoiser_rows.launches = 0
-        fused_chain_rows.launches = 0
+        fused_denoiser_rows.launches = fused_denoiser_rows.launches_act_bf16 = 0
+        fused_chain_rows.launches = fused_chain_rows.launches_act_bf16 = 0
         fused_tmdm_rows.launches = 0
 
     # -- 6. the NsDiff main path at full width -----------------------------------
@@ -868,7 +1053,8 @@ def main(argv=None):
     zero_counts()
     t_k2, ens2 = host_s(k2_arm)
     k2_launches = fused_chain_rows.launches
-    require(k2_launches == 1, "k2_arm", f"K2 launched {k2_launches} times, expected 1")
+    require(k2_launches == 1 and fused_chain_rows.launches_act_bf16 == 0, "k2_arm",
+            f"K2 launched {k2_launches} times, expected 1, with float32 activations")
     mpv_k2, _ = mpv_reduce(ens2, std, 0 * std, CHUNK, NODE, PRED_LEN)
     m1, m2 = mpv_k1.mean().item(), mpv_k2.mean().item()
     rel = abs(m2 - m1) / m1
@@ -877,7 +1063,23 @@ def main(argv=None):
          rel=rel, per_window_max_rel=((mpv_k2 - mpv_k1).abs() / mpv_k1).max().item(),
          k2_launches=k2_launches)
     require(rel <= 0.01, "k2_arm", f"K2 arm MPV {m2} vs K1 path {m1}: {rel:.4%}")
-    del ens, ens2, y0h, gxh, model
+    # the same arm with bf16 activations, same seed (the same normals): chunk
+    # MPV within 1% of the float32-activation arm's, window by window
+    k2a_arm = lambda: fused_nsdiff_chain(model.denoiser, y0h, gxh, model.sched, seed=11,
+                                         n_z_samples=N_Z, matmul_dtype=mm_main,
+                                         act_dtype="bfloat16")
+    k2a_arm()
+    zero_counts()
+    t_k2a, ens2a = host_s(k2a_arm)
+    k2a_launches = fused_chain_rows.launches_act_bf16
+    mpv_k2a, _ = mpv_reduce(ens2a, std, 0 * std, CHUNK, NODE, PRED_LEN)
+    rel_a = ((mpv_k2a - mpv_k2).abs() / mpv_k2).max().item()
+    emit(phase="k2_arm_act_bf16", card=smi_line, seconds=t_k2a, k2_launches_act_bf16=k2a_launches,
+         chunk_mpv=mpv_k2a.mean().item(), per_window_max_rel_vs_float32_act=rel_a)
+    require(k2a_launches == fused_chain_rows.launches == 1 and 0 < rel_a <= 0.01,
+            "k2_arm_act_bf16", f"{k2a_launches} bf16-activation launches, per-window MPV "
+            f"{rel_a:.4%} off the float32-act arm")
+    del ens, ens2, ens2a, y0h, gxh, model
 
     # -- 8. the TMDM path at full width -------------------------------------------
     tmdm = diffusion_models("TMDM", TMDM_PARAM, seed=0, device="cuda")
@@ -979,6 +1181,58 @@ def main(argv=None):
     require(fg_err <= 1e-4, "trained", f"f/g on the card off the CPU by {fg_err}")
     del sis, cpu
 
+    # -- 10b. the uncertainty_ews facade on the card ----------------------------------
+    # The trained SIS model over its whole trajectory, as a figure calls it:
+    # the MPV straight from the device, then through the `.pt` cache and its
+    # sidecar (the second call served from them, no launch), then with bf16
+    # activations through infer_params: K1's other arm, on the same normals
+    # (each call builds its model afresh from the seed), within 1% window by
+    # window of the float32-activation MPV.
+    with tempfile.TemporaryDirectory() as tmp:
+        def facade(sub, **kw):
+            Path(tmp, sub).mkdir(exist_ok=True)
+            zero_counts()
+            t, r = host_s(lambda: uncertainty_ews(
+                model_save_file=SIS_MODEL, data_file=SIS_DATA, dynamic_type="SIS",
+                cache_path=Path(tmp, sub), device="cuda", **kw))
+            return t, r, (fused_denoiser_rows.launches, fused_denoiser_rows.launches_act_bf16)
+
+        facade("warm", cache_mode="none")
+        # the facade's time: FACADE_REPS calls, model build included, as a
+        # figure makes one; each into a directory of its own, since a call
+        # leaves the `.mpv.json` sidecar that serves the next one
+        runs = [facade(f"none{i}", cache_mode="none") for i in range(FACADE_REPS)]
+        t_none = statistics.median(r[0] for r in runs)
+        _, r_none, l_none = runs[-1]
+        t_write, r_write, l_write = facade("write")
+        t_hit, r_hit, l_hit = facade("write")
+        t_act, r_act, l_act = facade("act", cache_mode="none", infer_params={
+            "sampling_act_dtype": "bfloat16", "sampling_matmul_dtype": "bfloat16"})
+        files = sorted(p.name for p in Path(tmp, "write").iterdir())
+    n_fw = len(r_none["ews"])
+    ews = {k: np.asarray(r["ews"]) for k, r in (("none", r_none), ("write", r_write),
+                                                ("hit", r_hit), ("act", r_act))}
+    act_rel = float(np.max(np.abs(ews["act"] - ews["none"]) / ews["none"]))
+    write_rel = float(np.max(np.abs(ews["write"] - ews["none"]) / ews["none"]))
+    k1a_launches = l_act[1]
+    emit(phase="facade", card=smi_line, windows=n_fw, calls=FACADE_REPS,
+         seconds_none={"median": t_none, "min": min(r[0] for r in runs),
+                       "max": max(r[0] for r in runs)},
+         windows_per_hr=n_fw / t_none * 3600.0, seconds_write=t_write, seconds_cache_hit=t_hit,
+         seconds_act_bf16=t_act,
+         k1_launches_all_and_act_bf16={"none": l_none, "write": l_write, "cache_hit": l_hit,
+                                       "act_bf16": l_act},
+         mpv=ews["none"].tolist(), mpv_act_bf16=ews["act"].tolist(),
+         act_bf16_max_rel=act_rel, write_vs_none_max_rel=write_rel, files=files)
+    require(n_fw > 0 and np.isfinite(ews["none"]).all() and (ews["none"] > 0).all()
+            and l_none[0] > 0 and l_none[1] == 0, "facade",
+            f"bad MPV {ews['none']} or K1 launches {l_none} (all, act bf16)")
+    require(l_hit == (0, 0) and np.array_equal(ews["hit"], ews["write"]) and write_rel <= 0.01,
+            "facade", f"cache hit: {l_hit} launches; write vs none {write_rel:.4%}")
+    require(l_act[1] == l_act[0] > 0 and 0 < act_rel <= 0.01, "facade",
+            f"act bf16: K1 launches {l_act} (all, act bf16), MPV {act_rel:.4%} off the "
+            "float32-act arm")
+
     # -- 11. the train step at full width --------------------------------------------
     from upgdm_tpu_torch.models.tmdm import TMDMModel
     from upgdm_tpu_torch.train.loop import run_training
@@ -1032,7 +1286,7 @@ def main(argv=None):
         opt = dict(optimizer_name="Adam", lr=1e-3, weight_decay=1e-5, scheduler_set=False)
         base = dict(train_batch_size=32, val_batch_size=len(va), test_set=True, ckpt=False,
                     ckpt_period=10, train_epochs=DEMO_EPOCHS)
-        stages = {}
+        stages, records = {}, {}
         for select, ref in DEMO_STAGES:
             out = Path(tmp) / ref
             stage_net = net
@@ -1045,6 +1299,7 @@ def main(argv=None):
                 {"loss_metric": "KL divergence"}, opt, out, dataset_param=dataset_param,
                 device="cuda"))
             (out / "model_trained").write_bytes((out / "trained_model/model_trained").read_bytes())
+            records[select] = rs
             jax_rs = json.loads((DEMO / ref / "train_trace/record_scores.json").read_text())
             got, want = float(np.mean(rs["train_scores"][-3:])), float(
                 np.mean(jax_rs["train_scores"][-3:]))
@@ -1058,6 +1313,27 @@ def main(argv=None):
             require(abs(st["rel"]) <= DEMO_BAR, "train_demo",
                     f"{select}: last-3-epoch train score {st['train_last3']} vs the JAX "
                     f"record's {st['jax_train_last3']}")
+
+        # -- 12b. a seeded run repeats: pretrain_f once more, records equal ------------
+        t_again, rs_again = host_s(lambda: run_training(
+            tr, va, dict(base, train_model_select="pretrain_f"), dict(net),
+            {"loss_metric": "KL divergence"}, opt, Path(tmp) / "pre_model_F_again",
+            dataset_param=dataset_param, device="cuda"))
+        same = rs_again == records["pretrain_f"]
+        cost = {}
+        det_batch = torch.as_tensor(np.random.default_rng(1).normal(
+            size=(TRAIN_B, WINDOWS + PRED_LEN, 1)), dtype=torch.float32, device=dev)
+        for name, select in (("pretrain_f", "pretrain_f"), ("NsDiff_model", None)):
+            cost[name] = determinism_cost(
+                NsDiffModel(TRAIN_PARAM, select or "NsDiff_model", seed=0, device="cuda"),
+                select, det_batch)
+        emit(phase="train_determinism", card=smi_line, identical=same, seconds=t_again,
+             train_last=[records["pretrain_f"]["train_scores"][-1],
+                         rs_again["train_scores"][-1]],
+             float32_step_ms_deterministic_cudnn=cost,
+             bf16_step_ms={k: train[f"{k}_bfloat16"]["step_ms"] for k in ("NsDiff_model", "TMDM")},
+             bf16_step_ms_before={"NsDiff_model": 73.973, "TMDM": 54.081})
+        require(same, "train_determinism", "two seeded pretrain_f runs gave other records")
 
         # -- 13. the checkpoint the demo wrote, swept through K1 ----------------------
         trained, _ = load_model_from_dir(Path(tmp) / "nsdiff/trained_model", device="cuda")
@@ -1078,22 +1354,34 @@ def main(argv=None):
         require(demo_mpv.shape == (len(slbp_w),) and np.isfinite(demo_mpv).all()
                 and (demo_mpv > 0).all(), "train_then_sweep", f"bad MPV {demo_mpv}")
 
-    def row(name, src, replaces, launches, err, ms, plain, bound):
-        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms[mm_main],
-                "plain_ms": plain[mm_main], "bound_ms": bound[mm_main][0],
-                "bound_by": bound[mm_main][1], "library_ms": None,
-                "matmul_dtype": mm_main, "ms_float32": ms["float32"],
-                "plain_ms_float32": plain["float32"], "bound_ms_float32": bound["float32"][0]}
+    def row(name, src, replaces, launches, err, ms, plain, bound, act=None):
+        out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": launches, "max_abs_err": err, "ms": ms[mm_main],
+               "plain_ms": plain[mm_main], "bound_ms": bound[mm_main][0],
+               "bound_by": bound[mm_main][1], "library_ms": None,
+               "matmul_dtype": mm_main, "ms_float32": ms["float32"],
+               "plain_ms_float32": plain["float32"], "bound_ms_float32": bound["float32"][0]}
+        if act is not None:  # the act_dtype="bfloat16" arm, bf16 matmuls
+            a_launches, a_err, a_ms, a_plain = act
+            out.update(launches_act_bf16=a_launches, max_abs_err_act_bf16=a_err,
+                       ms_act_bf16=a_ms, plain_ms_act_bf16=a_plain,
+                       bound_ms_act_bf16=bound["bfloat16"][0])
+        return out
 
     print(smi_line, flush=True)
+    k2_row = row("chain_resident", "upgdm_tpu_torch/csrc/chain_resident.cu",
+                 "upgdm_tpu/ops/pallas/chain_resident.py:188", k2_launches, k2_err[mm_main],
+                 k2_ms, k2_plain_ms, k2_bound,
+                 (k2a_launches, k2a_err["bfloat16"], k2a_ms["bfloat16"],
+                  k2a_plain_ms["bfloat16"]))
+    k2_row.update(ms_act_bf16_float32=k2a_ms["float32"],
+                  plain_ms_act_bf16_float32=k2a_plain_ms["float32"],
+                  max_abs_err_act_bf16_float32=k2a_err["float32"])
     print(json.dumps({"kernels": [
         row("fused_denoiser", "upgdm_tpu_torch/csrc/fused_denoiser.cu",
             "upgdm_tpu/ops/pallas/fused_denoiser.py:152", k1_launches, k1_err[mm_main],
-            k1_ms, k1_plain_ms, k1_bound),
-        row("chain_resident", "upgdm_tpu_torch/csrc/chain_resident.cu",
-            "upgdm_tpu/ops/pallas/chain_resident.py:188", k2_launches,
-            k2_err[mm_main], k2_ms, k2_plain_ms, k2_bound),
+            k1_ms, k1_plain_ms, k1_bound, (k1a_launches, k1a_err, k1a_ms, k1a_plain_ms)),
+        k2_row,
         row("fused_tmdm", "upgdm_tpu_torch/csrc/fused_tmdm.cu",
             "upgdm_tpu/ops/pallas/fused_denoiser.py:250", k3_launches, k3_err[mm_main],
             k3_ms, k3_plain_ms, k3_bound),

@@ -133,8 +133,8 @@ def test_wrappers_refuse_other_devices_and_bf16_activations():
     gam, w = denoiser_gammas(port, 0), denoiser_weights(port)
     with pytest.raises(ValueError):
         fused_denoiser_rows(x.to("meta"), gam, w)
-    with pytest.raises(NotImplementedError):
-        fused_denoiser_rows(x, gam, w, act_dtype="bfloat16")
+    with pytest.raises(ValueError, match="requires matmul_dtype=bfloat16"):
+        fused_denoiser_rows(x, gam, w, act_dtype="bfloat16")  # float32 matmuls
     sched = NsDiffSchedule.create("linear", STEPS, 1e-4, 2e-2)
     tables = tuple(e.detach() for e in (port.lin1.embed, port.lin2.embed, port.lin3.embed))
     y0 = torch.zeros(8, 1, device="meta")

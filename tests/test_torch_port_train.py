@@ -37,7 +37,8 @@ from upgdm_tpu_torch.models.nsdiff import NsDiffModel, NsDiffVariants
 from upgdm_tpu_torch.models.tmdm import TMDMModel
 from upgdm_tpu_torch.ops import diffusion as D
 from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
-from upgdm_tpu_torch.train.loop import make_train_step, run_training
+from upgdm_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
+from upgdm_tpu_torch.train.loop import deterministic_cudnn, make_train_step, run_training
 from upgdm_tpu_torch.train.optimizers import make_lr_schedule, make_optimizer
 from upgdm_tpu_torch.utils import io as pio
 from upgdm_tpu_torch.utils.weights import flax_flat_from_torch
@@ -165,29 +166,38 @@ def _port_for(stage):
     return port
 
 
-def _nsdiff_draws(key, n, shape, T):
-    """The t and e NsDiffModel.loss_fn draws from key (nsdiff.py:196-220)."""
+def _nsdiff_draws(key, n, shape, T, dtype=jnp.float32):
+    """The t and e NsDiffModel.loss_fn draws from key (nsdiff.py:196-220); e
+    in the batch's type, as JAX draws it."""
     _, kt, ke = jax.random.split(key, 3)
     t = JNsDiff.antithetic_t(kt, n, T)
-    return np.array(t), np.array(jax.random.normal(ke, shape, jnp.float32))
+    return np.array(t), np.array(jax.random.normal(ke, shape, dtype).astype(jnp.float32))
 
 
-def _tmdm_draws(jm, params, batch, key, train):
+def _bf16(tree):
+    return jax.tree.map(lambda x: x.astype(jnp.bfloat16) if x.dtype == jnp.float32 else x, tree)
+
+
+def _tmdm_draws(jm, params, batch, key, train, dtype=jnp.float32):
     """t, noise and the averaged reparameterisation normal of
     TMDMModel.loss_fn (tmdm.py:131-141); the normal is backed out of the
-    z_sample flax returns, in float64."""
+    z_sample flax returns, in float64. With ``dtype`` bf16 the draws are
+    those of the JAX package's bf16 loss (bf16 noise, the VAE on bf16
+    parameters and batch)."""
     kd, kr, kt, ke = jax.random.split(key, 4)
     n = batch.shape[0]
     shape = (n, jm.label_len + jm.pred_len, batch.shape[-1])
     t = np.array(jm.antithetic_t(kt, n, jm.sched.num_timesteps))
-    noise = np.array(jax.random.normal(ke, shape, jnp.float32))
+    noise = np.array(jax.random.normal(ke, shape, dtype).astype(jnp.float32))
     if not train:
         return t, noise, None
-    (_, _, _, z), inter = _jvae_capture(jm)(params["cond_pred_model"],
-                                            jnp.asarray(batch[:, : jm.windows]), kd, kr)
-    z_mean = np.asarray(inter["z_mean_1"]["__call__"][0], np.float64)
-    z_logvar = np.asarray(inter["z_logvar_1"]["__call__"][0], np.float64)
-    eps = (np.asarray(z, np.float64) - z_mean) / np.sqrt(np.exp(z_logvar))
+    p, x = params["cond_pred_model"], jnp.asarray(batch[:, : jm.windows])
+    if dtype != jnp.float32:
+        p, x = _bf16(p), x.astype(dtype)
+    (_, _, _, z), inter = _jvae_capture(jm)(p, x, kd, kr)
+    f64 = lambda a: np.asarray(a.astype(jnp.float32), np.float64)
+    z_mean, z_logvar = f64(inter["z_mean_1"]["__call__"][0]), f64(inter["z_logvar_1"]["__call__"][0])
+    eps = (f64(z) - z_mean) / np.sqrt(np.exp(z_logvar))
     return t, noise, eps.astype(np.float32)
 
 
@@ -204,14 +214,14 @@ def _jvae_capture(jm):
     return jax.jit(run)
 
 
-def _port_seams(stage, jm, params, batch, key, train):
+def _port_seams(stage, jm, params, batch, key, train, dtype=jnp.float32):
     if stage.startswith("TMDM"):
-        t, noise, eps = _tmdm_draws(jm, params, batch, key, train)
+        t, noise, eps = _tmdm_draws(jm, params, batch, key, train, dtype)
         return dict(t=t, noise=noise, reparam_eps=None if eps is None else torch.from_numpy(eps))
     if stage in ("pretrain_f", "pretrain_g"):
         return {}
     t, e = _nsdiff_draws(key, batch.shape[0], (batch.shape[0], NS["pred_len"], NS["dataset_nf"]),
-                         NS["diffusion_steps"])
+                         NS["diffusion_steps"], dtype)
     return dict(t=t, noise=e)
 
 
@@ -521,6 +531,112 @@ def test_resume_from_a_jax_emergency_file(tmp_path, capsys):
                       device="cpu")
     assert rs["epoch"] == [0, 1, 2, 3, 4] and rs["train_scores"][:3] == [9.0, 8.0, 7.0]
     assert all(np.isfinite(rs["train_scores"][3:]))
+
+
+# bf16 training (train_dtype="bfloat16"): JAX casts every float32 parameter
+# and the batch to bf16, runs the loss and casts it back (train/loop.py:54-67).
+# Both sides then run the same products on the same bf16 values; they round
+# in other places inside a layer (torch's addmm rounds product and bias once,
+# flax rounds the product, then the sum) and sum float32 in other orders, so
+# the loss moves by a fraction of a bf16 step: held to BF16_LOSS_RTOL, 2^-10
+# (measured at most 6.7e-4, TMDM). That is below every stage's own move from
+# float32 to bf16 in JAX (1.9e-3 pretrain_f to 5.3e-2 TMDM), so a float32 or
+# mixed-precision loss fails it. JAX's gradients reach the float32 weights
+# through the casts and carry bf16's resolution (2^-8 of a leaf's largest
+# element is one step): each leaf within four steps of its largest gradient,
+# plus 2^-12 of the model's largest for leaves that are small residues of
+# larger terms (measured worst: the attention query bias of TMDM's VAE at
+# 0.18 of its own largest, 4e-5 of the model's).
+BF16_LOSS_RTOL, BF16_GRAD_LEAF, BF16_GRAD_TOP = 2.0 ** -10, 2.0 ** -6, 2.0 ** -12
+BF16_STAGES = ["pretrain_f", "pretrain_g", "NsDiff_model", "TMDM"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jvalue_and_grad_bf16(stage, select):
+    jm = _jmodel(stage)
+
+    def loss(p, b, k):
+        return jm.loss_fn(_bf16(p), b.astype(jnp.bfloat16), k, select=select,
+                          train=True).astype(jnp.float32)
+
+    return jax.jit(jax.value_and_grad(loss))
+
+
+@pytest.mark.parametrize("stage", BF16_STAGES)
+def test_bf16_train_step_matches_jax_bf16_loss_and_gradients(stage):
+    """The port's train step with train_dtype="bfloat16" (make_train_step,
+    JAX's draws through the loss's seams) against JAX's bf16 loss and its
+    gradients, at the bars above."""
+    net = TM if stage == "TMDM" else NS
+    jm = _jmodel(stage)
+    select = stage if stage.startswith("pretrain") else None
+    batch = _batch(6, net, seed=STAGES.index(stage))
+    key = jax.random.key(7)
+    jl, jg = _jvalue_and_grad_bf16(stage, select)(jm.params, jnp.asarray(batch), key)
+    port = _port_for(stage)
+    port.net_param["train_dtype"] = "bfloat16"
+    port.loss_fn = functools.partial(port.loss_fn, **_port_seams(
+        stage, jm, jm.params, batch, key, True, jnp.bfloat16))
+    opt = make_optimizer(dict(ADAM, lr=0.0), port.net, port.trainable_mask(select))
+    loss = make_train_step(port, opt, select)(torch.from_numpy(batch))
+    np.testing.assert_allclose(loss, float(jl), rtol=BF16_LOSS_RTOL)
+    got = _grads(port)
+    want = {k: np.asarray(v) for k, v in flatten_params(jax.device_get(jg)).items() if k in got}
+    assert set(want) == set(got)
+    top = max(np.abs(w).max() for w in want.values())
+    for k, w in want.items():
+        bar = BF16_GRAD_LEAF * np.abs(w).max() + BF16_GRAD_TOP * top
+        np.testing.assert_allclose(got[k], w, rtol=0, atol=bar, err_msg=k)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [(torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32)])
+def test_layers_compute_in_the_promoted_type(x_dtype, w_dtype):
+    """As flax's layers: the result type of input and parameters, on their
+    values (a bf16 kernel meeting a float32 input computes in float32 on the
+    kernel's bf16 values); with one type, torch's own layers bit for bit."""
+    torch.manual_seed(0)
+    want_dt = torch.promote_types(x_dtype, w_dtype)
+    for layer, plain, x in (
+            (Linear(8, 4), torch.nn.Linear(8, 4), torch.randn(3, 8)),
+            (Conv1d(8, 4, 3), torch.nn.Conv1d(8, 4, 3), torch.randn(3, 8, 5)),
+            (LayerNorm(8), torch.nn.LayerNorm(8), torch.randn(3, 8))):
+        plain.load_state_dict(layer.state_dict())
+        layer.to(w_dtype)
+        got = layer(x.to(x_dtype))
+        assert got.dtype == want_dt
+        plain.to(w_dtype).to(want_dt)  # the parameters' values in the compute type
+        assert torch.equal(got, plain(x.to(x_dtype).to(want_dt)))
+
+
+def test_run_training_holds_cudnn_to_deterministic_algorithms(tmp_path):
+    """A seeded run repeats on the card: every loss of the run sees cuDNN's
+    deterministic algorithms without autotuning, and the process's settings
+    come back afterwards."""
+    cudnn = torch.backends.cudnn
+    seen = []
+    model = NsDiffModel(NS, device="cpu")
+    loss_fn = model.loss_fn
+
+    def spy(*a, **kw):
+        seen.append((cudnn.deterministic, cudnn.benchmark))
+        return loss_fn(*a, **kw)
+
+    model.loss_fn = spy
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        cudnn.deterministic, cudnn.benchmark = False, True
+        data = _data(12, NS)
+        run_training(data[:8], data[8:], dict(TRAIN, train_epochs=1), NS, {}, ADAM, tmp_path,
+                     model=model)
+        assert seen and set(seen) == {(True, False)}
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+        with deterministic_cudnn():
+            assert (cudnn.deterministic, cudnn.benchmark) == (True, False)
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def test_train_dtype_bfloat16(tmp_path):

@@ -16,7 +16,9 @@
 // softplus of one exp and one log each, three rsqrt, and seven for the noise
 // draw and the posterior's roots and reciprocal: ~23.8 ms at 16 results a
 // clock on each of 132 SMs at 1.98 GHz). So the bf16 arm is bound by special
-// functions, the float32 arm by operations.
+// functions, the float32 arm by operations. act_dtype = bfloat16 (either
+// matmul type, as the TPU kernel allows) runs the gate band in bf16 with the
+// same special functions: the same bound.
 //
 // Design. Nothing but y0_hat, gx and y_0 touches device memory, in either arm.
 //  * bfloat16 matmuls: chain_resident_mma_kernel on the tensor-core trunk of
@@ -39,8 +41,9 @@
 //    bf16-rounded operands. No activation and no chain state goes through
 //    shared memory.
 //  * Every step's gates are laid out once on the host as (gamma, gamma * bias)
-//    pairs, [T, 3, 64] float4 in device memory (T may be 1,024, and a block's
-//    warpgroups are at different steps). Each warpgroup copies its step's
+//    pairs, [T, 3, 64] float4 in device memory (with ACT: bf16 (gamma, bias)
+//    pairs, [T, 3, 64] uint2, since the add and the multiply round apart; T
+//    may be 1,024, and a block's warpgroups are at different steps). Each warpgroup copies its step's
 //    3 KB through the read-only cache into one of its two shared-memory
 //    slots, under the first layer, and pays one 128-thread barrier a step;
 //    the gate bands then read shared memory as in K1. Read straight from
@@ -50,6 +53,8 @@
 //    CUDA cores, the trunk of denoiser_trunk.cuh (one thread per hidden unit,
 //    32 rows per group of 128 threads, state published through shared memory
 //    with a group barrier a step, the y0_hat/gx partial kept in registers).
+//    With ACT its bands round to bf16 and the float32 products read the bf16
+//    activations.
 // The seven schedule rows sit in __constant__ memory (a warp-uniform read per
 // step). Noise is Philox4x32-10 keyed by (seed, global row, step, feature
 // pair) with a Box-Muller transform, drawn by the lane or thread that owns the
@@ -163,7 +168,7 @@ __device__ __forceinline__ float chain_update(const Coeffs& c, int t, float y, f
 
 // ---- float32 arm: CUDA cores -----------------------------------------------------
 
-template <typename WT>
+template <typename WT, bool ACT>
 __global__ void __launch_bounds__(4 * HID, 1)
 chain_resident_kernel(const float* __restrict__ y0h, const float* __restrict__ gxs,
                       long long M, int F, int T, unsigned long long seed, int noise,
@@ -233,9 +238,9 @@ chain_resident_kernel(const float* __restrict__ y0h, const float* __restrict__ g
         for (int i = 0; i < F; ++i) a = fmaf(ys[r * F + i], to_f(W1s[i * HID + j]), a);
         acc[r] = a + base1[r];
       }
-      norm_band<WT>(acc, __ldg(E1 + t * HID + j), bb1, s, group, j, true);
-      trunk_tail<WT>(acc, W2s, W3s, __ldg(E2 + t * HID + j), bb2, __ldg(E3 + t * HID + j),
-                     bb3, s, group, j);
+      norm_band<WT, ACT>(acc, __ldg(E1 + t * HID + j), bb1, s, group, j, true);
+      trunk_tail<WT, ACT>(acc, W2s, W3s, __ldg(E2 + t * HID + j), bb2,
+                          __ldg(E3 + t * HID + j), bb3, s, group, j);
       float eps = 0.0f, sig = 0.0f;
       heads<WT>(acc, W4s, Wss, b4, bs, F, s, group, j, &eps, &sig);
       if (owner) {
@@ -255,6 +260,7 @@ static int upload_schedule(const float* tab, int T, cudaStream_t stream) {
                                       cudaMemcpyDeviceToDevice, stream);
 }
 
+template <bool ACT>
 static int launch_float32(const float* y0h, const float* gx, long long M, int F, int T,
                           unsigned long long seed, int noise, int gx_direct, const float* E1,
                           const float* E2, const float* E3, const float* W1, const float* b1,
@@ -264,7 +270,7 @@ static int launch_float32(const float* y0h, const float* gx, long long M, int F,
   size_t smem = 0;
   const int G = pick_groups<float>(F, &smem);
   if (G == 0) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = chain_resident_kernel<float>;
+  auto kernel = chain_resident_kernel<float, ACT>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -314,9 +320,9 @@ __device__ __forceinline__ void chain_first_product(float (&acc)[mma::ACC],
   for (int s = 0; s < 2; ++s) {
 #pragma unroll
     for (int i = 0; i < F; ++i) {
-      yb[s][i] = __shfl_sync(0xffffffffu, mma::rnd_bf16(y[O::pair(s)]), O::lane(s, i), 4);
-      y0b[s][i] = __shfl_sync(0xffffffffu, mma::rnd_bf16(y0[O::pair(s)]), O::lane(s, i), 4);
-      gxb[s][i] = __shfl_sync(0xffffffffu, mma::rnd_bf16(gx[O::pair(s)]), O::lane(s, i), 4);
+      yb[s][i] = __shfl_sync(0xffffffffu, rnd_bf16(y[O::pair(s)]), O::lane(s, i), 4);
+      y0b[s][i] = __shfl_sync(0xffffffffu, rnd_bf16(y0[O::pair(s)]), O::lane(s, i), 4);
+      gxb[s][i] = __shfl_sync(0xffffffffu, rnd_bf16(gx[O::pair(s)]), O::lane(s, i), 4);
     }
   }
   const float2* w = reinterpret_cast<const float2*>(w1);
@@ -346,7 +352,8 @@ __device__ __forceinline__ void chain_first_product(float (&acc)[mma::ACC],
 }
 
 // Shared memory of the tensor-core arm: the trunk's plan, then two slots of one
-// step's gates (3 x 64 float4) for each warpgroup.
+// step's gates (3 x 64 float4, or with ACT 3 x 64 uint2 in the first half) for
+// each warpgroup.
 constexpr int GATE_SLOT = 3 * 64;  // float4 a step
 template <int F>
 struct ChainSmem {
@@ -355,11 +362,11 @@ struct ChainSmem {
   static constexpr int total = Trunk::total + 2 * CHAIN_WGS * GATE_SLOT * 16;
 };
 
-template <int F>
+template <int F, bool ACT>
 __global__ void __launch_bounds__(128 * CHAIN_WGS, 1)
 chain_resident_mma_kernel(const float* __restrict__ y0h, const float* __restrict__ gxs,
                           long long M, int T, unsigned long long seed, int noise,
-                          int gx_direct, const float4* __restrict__ gates,
+                          int gx_direct, const uint4* __restrict__ gates,
                           const __nv_bfloat16* __restrict__ W1, const uint4* __restrict__ W2t,
                           const uint4* __restrict__ W3t, const __nv_bfloat16* __restrict__ W4,
                           const float* __restrict__ b4, const __nv_bfloat16* __restrict__ Ws,
@@ -385,7 +392,9 @@ chain_resident_mma_kernel(const float* __restrict__ y0h, const float* __restrict
   const int tiles = (int)((M + mma::TILE - 1) / mma::TILE);
   // the warpgroup's two gate slots; a step writes the one the last did not read
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 127;
-  float4* slots = reinterpret_cast<float4*>(smem + ChainSmem<F>::gates) + wg * 2 * GATE_SLOT;
+  uint4* slots = reinterpret_cast<uint4*>(smem + ChainSmem<F>::gates) + wg * 2 * GATE_SLOT;
+  // a step's gates in 16-byte words: 192 float4, or 96 uint4 of (g, b) bf16 pairs
+  constexpr int WORDS = ACT ? GATE_SLOT / 2 : GATE_SLOT;
   int slot = 0;
 
   float acc[mma::ACC];
@@ -404,20 +413,26 @@ chain_resident_mma_kernel(const float* __restrict__ y0h, const float* __restrict
     }
     for (int t = T - 1; t >= 0; --t) {
       // this step's gates come in under the first layer
-      const float4* src = gates + (size_t)t * GATE_SLOT;
-      const float4 ga = __ldg(src + lane);
-      const float4 gc = __ldg(src + 128 + (lane & 63));
+      const uint4* src = gates + (size_t)t * WORDS;
+      uint4 ga = make_uint4(0, 0, 0, 0), gc = ga;
+      if constexpr (ACT) {
+        if (lane < WORDS) ga = __ldg(src + lane);
+      } else {
+        ga = __ldg(src + lane);
+        gc = __ldg(src + 128 + (lane & 63));
+      }
       chain_first_product<F>(acc, y, y0, gx, w1, q);
-      float4* gb = slots + slot * GATE_SLOT;
+      uint4* gb = slots + slot * GATE_SLOT;
       slot ^= 1;
-      gb[lane] = ga;
-      if (lane < 64) gb[128 + lane] = gc;
+      if (!ACT || lane < WORDS) gb[lane] = ga;
+      if (!ACT && lane < 64) gb[128 + lane] = gc;
       group_sync(wg);  // gates visible; every warp is past the last step's reads
-      mma::gate_band<true>(acc, gb, q);
+      const unsigned char* gl = reinterpret_cast<const unsigned char*>(gb);
+      mma::gate_band<true, ACT>(acc, mma::layer_gates<ACT>(gl, 0), q);
       mma::hidden_product(acc, base + S::w2);
-      mma::gate_band<true>(acc, gb + 64, q);
+      mma::gate_band<true, ACT>(acc, mma::layer_gates<ACT>(gl, 1), q);
       mma::hidden_product(acc, base + S::w3);
-      mma::gate_band<true>(acc, gb + 128, q);
+      mma::gate_band<true, ACT>(acc, mma::layer_gates<ACT>(gl, 2), q);
       // the heads leave feature i of slots 0 and 1 on lane i
       float eps[2], sig[2];
       mma::head<F>(acc, w4, q, eps[0], eps[1]);
@@ -450,20 +465,20 @@ chain_resident_mma_kernel(const float* __restrict__ y0h, const float* __restrict
   }
 }
 
-template <int F>
+template <int F, bool ACT>
 static int launch_mma(const float* y0h, const float* gx, long long M, int T,
                       unsigned long long seed, int noise, int gx_direct, const void* gates,
                       const void* W1, const void* W2t, const void* W3t, const void* W4,
                       const float* b4, const void* Ws, const float* bs, float* out,
                       cudaStream_t stream) {
-  auto kernel = chain_resident_mma_kernel<F>;
+  auto kernel = chain_resident_mma_kernel<F, ACT>;
   constexpr size_t smem = ChainSmem<F>::total;
   int grid = 0;
   const int err =
       mma::configure(kernel, CHAIN_WGS, smem, (M + mma::TILE - 1) / mma::TILE, &grid);
   if (err != (int)cudaSuccess) return err;
   kernel<<<grid, 128 * CHAIN_WGS, smem, stream>>>(
-      y0h, gx, M, T, seed, noise, gx_direct, static_cast<const float4*>(gates),
+      y0h, gx, M, T, seed, noise, gx_direct, static_cast<const uint4*>(gates),
       static_cast<const __nv_bfloat16*>(W1), static_cast<const uint4*>(W2t),
       static_cast<const uint4*>(W3t), static_cast<const __nv_bfloat16*>(W4), b4,
       static_cast<const __nv_bfloat16*>(Ws), bs, out);
@@ -475,11 +490,13 @@ static int launch_mma(const float* y0h, const float* gx, long long M, int T,
 // C interface (ctypes). tab is the [7, T] float32 schedule table on the
 // device; noise != 0 draws Philox normals, 0 runs the chain noise-free.
 // bf16 != 0 selects the tensor-core arm: gates is the [T, 3, 64] float4 table
-// of (gamma, gamma * bias) pairs (ops/kernels/chain_resident.py::gate_table),
+// of (gamma, gamma * bias) pairs (ops/kernels/chain_resident.py::gate_table;
+// with act != 0 the [T, 3, 64] uint2 table of bf16 (gamma, bias) pairs),
 // W1 [3F, 128], W4 and Ws [128, F] are bf16, W2 and W3 bf16 in the tiled
 // B-operand order of trunk_mma.cuh; E1..E3 and b1..b3 are not read. Otherwise
 // E1..E3 are the [T, 128] gate tables, all five matrices are float32
-// [in, out] and gates is not read. Returns cudaGetLastError() after the launch.
+// [in, out] and gates is not read. act != 0 runs the activations in bf16, in
+// either arm. Returns cudaGetLastError() after the launch.
 extern "C" int upgdm_chain_resident(const float* y0h, const float* gx, long long M, int F,
                                     int T, const float* tab, unsigned long long seed,
                                     int noise, int gx_direct, const float* E1,
@@ -487,7 +504,8 @@ extern "C" int upgdm_chain_resident(const float* y0h, const float* gx, long long
                                     const void* W1, const float* b1, const void* W2,
                                     const float* b2, const void* W3, const float* b3,
                                     const void* W4, const float* b4, const void* Ws,
-                                    const float* bs, float* out, int bf16, void* stream) {
+                                    const float* bs, float* out, int bf16, int act,
+                                    void* stream) {
   using namespace upgdm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F < 1 || F > MAX_F || M < 0 || T < 1 || T > MAX_T) return (int)cudaErrorInvalidValue;
@@ -496,12 +514,13 @@ extern "C" int upgdm_chain_resident(const float* y0h, const float* gx, long long
   if (err != (int)cudaSuccess) return err;
   if (!bf16) {
     const auto f = [](const void* p) { return static_cast<const float*>(p); };
-    return launch_float32(y0h, gx, M, F, T, seed, noise, gx_direct, E1, E2, E3, f(W1), b1,
-                          f(W2), b2, f(W3), b3, f(W4), b4, f(Ws), bs, out, st);
+    return (act ? launch_float32<true> : launch_float32<false>)(
+        y0h, gx, M, F, T, seed, noise, gx_direct, E1, E2, E3, f(W1), b1, f(W2), b2, f(W3), b3,
+        f(W4), b4, f(Ws), bs, out, st);
   }
-#define UPGDM_CHAIN_MMA(N)                                                                  \
-  launch_mma<N>(y0h, gx, M, T, seed, noise, gx_direct, gates, W1, W2, W3, W4, b4, Ws, bs, out, \
-                st)
+#define UPGDM_CHAIN_MMA(N)                                                                   \
+  (act ? launch_mma<N, true> : launch_mma<N, false>)(y0h, gx, M, T, seed, noise, gx_direct,   \
+                                                     gates, W1, W2, W3, W4, b4, Ws, bs, out, st)
   switch (F) {
     case 1: return UPGDM_CHAIN_MMA(1);
     case 2: return UPGDM_CHAIN_MMA(2);

@@ -14,12 +14,17 @@
 // Numerics. Sums accumulate in float32 in a fixed order (k = 0..127). With
 // bf16 matmuls (WT = __nv_bfloat16) both dot operands are rounded to bf16
 // (round to nearest even) and the products accumulate in float32, as the TPU
-// kernel does; activations stay float32.
+// kernel does. Activations are float32, or with ACT (the TPU kernels'
+// act_dtype = bfloat16) bf16: act_softplus rounds after every operation, the
+// sum of squares stays float32 over the rounded squares, and the layer's
+// output is the bf16 row times the bf16-rounded rsqrt.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16_math.cuh"
 
 namespace upgdm {
 
@@ -42,6 +47,21 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
 // softplus(x) = max(x, 0) + log1p(exp(-|x|)), as jax.nn.softplus.
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+// The gate and softplus of one pre-activation in bf16, as the TPU kernels'
+// act_dtype = bfloat16 arm computes them (fused_denoiser.py:125-133 with
+// _softplus_branchfree, chain_resident.py:87-90): the float32 product is
+// rounded, then o = g (o + b) and log(1 + exp(-|o|)) + 0.5 (o + |o|) are
+// taken with a bf16 rounding after every operation. g and b are bf16 values.
+// exp and log are the special-function unit's ex2 / lg2 (relative error
+// ~2^-22, far below the 2^-9 of the rounding that follows each).
+__device__ __forceinline__ float act_softplus(float acc, float g, float b) {
+  const float o = rnd_bf16(g * rnd_bf16(rnd_bf16(acc) + b));
+  const float ax = fabsf(o);
+  const float e = rnd_bf16(ex2_approx(-1.4426950408889634f * ax));
+  const float l = rnd_bf16(lg2_approx(rnd_bf16(1.0f + e)) * 0.6931471805599453f);
+  return rnd_bf16(l + 0.5f * rnd_bf16(o + ax));  // 0.5 x is exact
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -137,20 +157,26 @@ __device__ __forceinline__ void dense_hidden(const float* hs, const WT* W, int j
 }
 
 // Gate, softplus and L2-normalise the R pre-activations of hidden unit j:
-// v = softplus(gamma * (acc + bias)); h = v * rsqrt(max(sum_j v^2, 1e-24)).
-// When `store` is set the (bf16-rounded, for bf16 matmuls) rows are written
-// to hs for the next layer. Must be entered by all 128 threads of the group
-// after they finished reading hs.
-template <typename WT>
+// v = softplus(gamma * (acc + bias)); h = v * rsqrt(max(sum_j v^2, 1e-24)),
+// in float32 or, with ACT, in bf16 (act_softplus; the squares rounded before
+// the float32 sum, h = bf16(v * bf16(rsqrt))). When `store` is set the
+// (bf16-rounded, for bf16 matmuls) rows are written to hs for the next layer.
+// Must be entered by all 128 threads of the group after they finished
+// reading hs.
+template <typename WT, bool ACT>
 __device__ __forceinline__ void norm_band(float (&acc)[R], float gamma, float bias,
                                           const GroupSmem& s, int group, int j,
                                           bool store) {
   const int warp = j >> 5, lane = j & 31;
+  if (ACT) {
+    gamma = rnd_bf16(gamma);
+    bias = rnd_bf16(bias);
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float v = softplus(gamma * (acc[r] + bias));
+    const float v = ACT ? act_softplus(acc[r], gamma, bias) : softplus(gamma * (acc[r] + bias));
     acc[r] = v;
-    const float ss = warp_sum(v * v);
+    const float ss = warp_sum(ACT ? rnd_bf16(v * v) : v * v);
     if (lane == 0) s.red_ss[warp * R + r] = ss;
   }
   group_sync(group);  // partial sums visible; every read of hs is done
@@ -159,22 +185,24 @@ __device__ __forceinline__ void norm_band(float (&acc)[R], float gamma, float bi
     float ss = s.red_ss[r];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) ss += s.red_ss[w * R + r];
-    acc[r] *= rsqrtf(fmaxf(ss, 1e-24f));
+    const float scale = rsqrtf(fmaxf(ss, 1e-24f));
+    acc[r] = ACT ? rnd_bf16(acc[r] * rnd_bf16(scale)) : acc[r] * scale;
     if (store) s.hs[r * HID + j] = rnd<WT>(acc[r]);
   }
   group_sync(group);  // hs complete; red_ss free again
 }
 
 // Layers 2 and 3 of the trunk; on entry hs holds layer 1's output rows and
-// acc layer 1's output for unit j. On exit acc holds h (float32).
-template <typename WT>
+// acc layer 1's output for unit j. On exit acc holds h (float32 holding bf16
+// values with ACT).
+template <typename WT, bool ACT>
 __device__ __forceinline__ void trunk_tail(float (&acc)[R], const WT* W2s, const WT* W3s,
                                            float g2, float b2, float g3, float b3,
                                            const GroupSmem& s, int group, int j) {
   dense_hidden<WT>(s.hs, W2s, j, acc);
-  norm_band<WT>(acc, g2, b2, s, group, j, true);
+  norm_band<WT, ACT>(acc, g2, b2, s, group, j, true);
   dense_hidden<WT>(s.hs, W3s, j, acc);
-  norm_band<WT>(acc, g3, b3, s, group, j, false);
+  norm_band<WT, ACT>(acc, g3, b3, s, group, j, false);
 }
 
 // The two heads over h (acc): thread j adds its unit's terms; after the

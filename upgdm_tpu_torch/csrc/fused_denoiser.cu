@@ -16,6 +16,10 @@
 // 1.98 GHz). So the bf16 arm is bound by special functions, the float32 arm
 // by operations.
 //
+// act_dtype = bfloat16 (it needs bf16 matmuls, as the TPU kernel's wrapper
+// says) runs the gate band in bf16 (trunk_mma.cuh, ACT): the same special
+// functions a row, so the same bound; the extra roundings are issue slots.
+//
 // Design. Nothing but x, eps and sigma touches device memory, in either arm.
 //  * bfloat16 matmuls (the arm the sweeps use): fused_denoiser_mma_kernel on
 //    the tensor-core trunk of trunk_mma.cuh. A block is four warpgroups
@@ -89,8 +93,8 @@ fused_denoiser_kernel(const float* __restrict__ x, long long M, int F,
       for (int i = 0; i < IN; ++i) a = fmaf(s.io[r * IN + i], to_f(W1s[i * HID + j]), a);
       acc[r] = a;
     }
-    norm_band<WT>(acc, gam1, bb1, s, group, j, true);
-    trunk_tail<WT>(acc, W2s, W3s, gam2, bb2, gam3, bb3, s, group, j);
+    norm_band<WT, false>(acc, gam1, bb1, s, group, j, true);
+    trunk_tail<WT, false>(acc, W2s, W3s, gam2, bb2, gam3, bb3, s, group, j);
     float e = 0.0f, sg = 0.0f;
     heads<WT>(acc, W4s, Wss, b4, bs, F, s, group, j, &e, &sg);
     if (j < R * F) {
@@ -132,11 +136,14 @@ static int launch(const float* x, long long M, int F, const float* g1, const flo
 
 // Warpgroups a block, sized from the ptxas -v report: with four (128 registers
 // a thread) F <= 3 builds without spills and F = 4 does not, so F = 4 runs
-// three (168 registers).
-constexpr int denoiser_wgs(int F) { return F <= 3 ? mma::MAX_WGS : mma::MAX_WGS - 1; }
+// three (168 registers); a first float32-emulated bf16-activation band
+// spilled 8 bytes at F = 3 with four, so that arm runs three from F = 3.
+constexpr int denoiser_wgs(int F, bool act) {
+  return F <= (act ? 2 : 3) ? mma::MAX_WGS : mma::MAX_WGS - 1;
+}
 
-template <int F>
-__global__ void __launch_bounds__(128 * denoiser_wgs(F), 1)
+template <int F, bool ACT>
+__global__ void __launch_bounds__(128 * denoiser_wgs(F, ACT), 1)
 fused_denoiser_mma_kernel(const float* __restrict__ x, long long M,
                           const float* __restrict__ g1, const float* __restrict__ g2,
                           const float* __restrict__ g3, const __nv_bfloat16* __restrict__ W1,
@@ -154,7 +161,7 @@ fused_denoiser_mma_kernel(const float* __restrict__ x, long long M,
   float* wsg = w4 + F * mma::HID;
   mma::stage_head<F>(w4, W4);
   mma::stage_head<F>(wsg, Ws);
-  mma::stage_trunk<IN, 2 * F>(smem, W1, W2t, W3t, g1, b1, g2, b2, g3, b3);
+  mma::stage_trunk<IN, 2 * F, ACT>(smem, W1, W2t, W3t, g1, b1, g2, b2, g3, b3);
 
   const mma::Walk walk;
   const int q = walk.q;
@@ -164,7 +171,7 @@ fused_denoiser_mma_kernel(const float* __restrict__ x, long long M,
   for (int tile = walk.first; tile < tiles; tile += walk.stride) {
     const long long r0 = (long long)tile * mma::TILE + walk.row;
     mma::prefetch_rows<IN>(x, M, r0 + (long long)walk.stride * mma::TILE, q);
-    mma::trunk<IN, 2 * F, true>(acc, x, M, r0, smem, q);
+    mma::trunk<IN, 2 * F, true, ACT>(acc, x, M, r0, smem, q);
     // each head is stored before the next is taken, so only one head's sums
     // are live beside the fragment
     float o0, o1;
@@ -182,16 +189,16 @@ fused_denoiser_mma_kernel(const float* __restrict__ x, long long M,
   }
 }
 
-template <int F>
+template <int F, bool ACT>
 static int launch_mma(const float* x, long long M, const float* g1, const float* g2,
                       const float* g3, const void* W1, const float* b1, const void* W2t,
                       const float* b2, const void* W3t, const float* b3, const void* W4,
                       const float* b4, const void* Ws, const float* bs, float* eps,
                       float* sigma, cudaStream_t stream) {
-  auto kernel = fused_denoiser_mma_kernel<F>;
+  auto kernel = fused_denoiser_mma_kernel<F, ACT>;
   constexpr size_t smem = mma::Smem<3 * F, 2 * F>::total;
   int grid = 0;
-  constexpr int wgs = denoiser_wgs(F);
+  constexpr int wgs = denoiser_wgs(F, ACT);
   const int err = mma::configure(kernel, wgs, smem, (M + mma::TILE - 1) / mma::TILE, &grid);
   if (err != (int)cudaSuccess) return err;
   kernel<<<grid, 128 * wgs, smem, stream>>>(
@@ -207,28 +214,32 @@ static int launch_mma(const float* x, long long M, const float* g1, const float*
 // C interface (ctypes). bf16 != 0 selects the tensor-core arm: W1 [3F, 128],
 // W4 and Ws [128, F] are bf16 and W2, W3 are bf16 in the tiled B-operand order
 // of trunk_mma.cuh (ops/kernels/fused_denoiser.py::tile_b_operand). Otherwise
-// all five matrices are float32 [in, out]. Everything else is float32. Returns
-// cudaGetLastError() after the launch.
+// all five matrices are float32 [in, out]. Everything else is float32. act != 0
+// runs the activations in bf16 and needs bf16 != 0. Returns cudaGetLastError()
+// after the launch.
 extern "C" int upgdm_fused_denoiser(const float* x, long long M, int F, const float* g1,
                                     const float* g2, const float* g3, const void* W1,
                                     const float* b1, const void* W2, const float* b2,
                                     const void* W3, const float* b3, const void* W4,
                                     const float* b4, const void* Ws, const float* bs,
-                                    float* eps, float* sigma, int bf16, void* stream) {
+                                    float* eps, float* sigma, int bf16, int act,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!bf16)
+  if (!bf16) {
+    if (act) return (int)cudaErrorInvalidValue;
     return upgdm::launch<float>(x, M, F, g1, g2, g3, W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs,
                                 eps, sigma, st);
+  }
   if (M < 0) return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
-#define UPGDM_DENOISER_MMA(N)                                                             \
-  upgdm::launch_mma<N>(x, M, g1, g2, g3, W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs, eps, sigma, \
-                       st)
+#define UPGDM_DENOISER_MMA(N, A)                                                        \
+  upgdm::launch_mma<N, A>(x, M, g1, g2, g3, W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs, eps, \
+                          sigma, st)
   switch (F) {
-    case 1: return UPGDM_DENOISER_MMA(1);
-    case 2: return UPGDM_DENOISER_MMA(2);
-    case 3: return UPGDM_DENOISER_MMA(3);
-    case 4: return UPGDM_DENOISER_MMA(4);
+    case 1: return act ? UPGDM_DENOISER_MMA(1, true) : UPGDM_DENOISER_MMA(1, false);
+    case 2: return act ? UPGDM_DENOISER_MMA(2, true) : UPGDM_DENOISER_MMA(2, false);
+    case 3: return act ? UPGDM_DENOISER_MMA(3, true) : UPGDM_DENOISER_MMA(3, false);
+    case 4: return act ? UPGDM_DENOISER_MMA(4, true) : UPGDM_DENOISER_MMA(4, false);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef UPGDM_DENOISER_MMA

@@ -47,11 +47,23 @@
 //    pre-activations keep their relative accuracy (K1 divides by the row
 //    norm). Its relative error (< 3e-5) is far below the bf16 rounding
 //    (2^-9) that follows it.
+//  * ACT (K1 and K2 with act_dtype = bfloat16): the gate band in bf16 as the
+//    TPU kernels compute it, a bf16 rounding after every operation, on
+//    packed __nv_bfloat162 pairs (the thread's two columns of a row): the
+//    adds and multiplies are bf16x2 instructions that round once for two
+//    values, exp and log go through ex2 / lg2 on the unpacked pair and are
+//    rounded back (log(1 + e) as the TPU kernel writes it, no series
+//    branch). The add and the multiply of the gate round apart, so the band
+//    reads bf16 (gamma, gamma') and (bias, bias') pairs, one uint2 per
+//    column pair, in place of the float32 arm's (gamma, gamma * bias). The
+//    same ex2 / lg2 / rsqrt a row: the same bound.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16_math.cuh"
 
 namespace upgdm {
 namespace mma {
@@ -64,18 +76,6 @@ constexpr int W_BYTES = HID * HID * 2;       // one bf16 128x128 matrix
 constexpr int KBLOCK_BYTES = HID * 64 * 2;   // 128 rows (n) x 64 k of one swizzle block
 
 // ---- small device helpers --------------------------------------------------
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2_approx(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // softplus(x) = max(x, 0) + log1p(exp(-|x|)) in two special-function
 // operations and eight others. log1p(e) is lg2(1 + e) * ln 2 for e >= 2^-7
@@ -97,10 +97,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 __device__ __forceinline__ float bf16_lo(uint32_t p) { return __uint_as_float(p << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
-
-__device__ __forceinline__ float rnd_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // Sum over the four lanes of a quad (the lanes that hold one row).
 __device__ __forceinline__ float quad_sum(float v) {
@@ -210,7 +206,8 @@ __device__ __forceinline__ void hidden_product(float (&acc)[ACC], uint32_t w_add
 
 // Shared-memory plan of one block: W2 and W3 in the tiled bf16 order (each on
 // a 1024-byte boundary), then float32 arrays: the three layers' (gamma,
-// gamma * bias) as float4 per column pair, W1 [IN, 128] and NH head rows
+// gamma * bias) as float4 per column pair (ACT: (gamma, bias) as bf16, one
+// uint2 per column pair, in the first half), W1 [IN, 128] and NH head rows
 // [NH, 128] (a head matrix [128, F] is stored transposed, feature by feature).
 template <int IN, int NH>
 struct Smem {
@@ -232,6 +229,19 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
 // gamma * (acc + bias) = fma(gamma, acc, gamma * bias) to an ulp.
 __device__ __forceinline__ float4 gate_pair(const float* g, const float* b, int p) {
   return make_float4(g[2 * p], g[2 * p] * b[2 * p], g[2 * p + 1], g[2 * p + 1] * b[2 * p + 1]);
+}
+
+// ACT: bf16 (gamma of column 2p, of 2p + 1) in .x and (bias of 2p, of
+// 2p + 1) in .y, column 2p in the low half: the operands of the bf16x2 gate.
+__device__ __forceinline__ uint2 gate_pair_act(const float* g, const float* b, int p) {
+  return make_uint2(pack_bf16(g[2 * p], g[2 * p + 1]), pack_bf16(b[2 * p], b[2 * p + 1]));
+}
+
+// The gates of one layer (0, 1, 2) in a three-layer block of gates at `gates`.
+template <bool ACT>
+__device__ __forceinline__ const unsigned char* layer_gates(const unsigned char* gates,
+                                                            int layer) {
+  return gates + layer * 64 * (ACT ? sizeof(uint2) : sizeof(float4));
 }
 
 // Stage the trunk's matrices (whole block): W2t and W3t are in the tiled order
@@ -259,18 +269,25 @@ __device__ __forceinline__ void staging_done() {
 
 // Stage the trunk's weights and one step's gates (whole block). Ends with the
 // block barrier.
-template <int IN, int NH>
+template <int IN, int NH, bool ACT = false>
 __device__ __forceinline__ void stage_trunk(unsigned char* smem, const __nv_bfloat16* W1,
                                             const uint4* W2t, const uint4* W3t,
                                             const float* g1, const float* b1, const float* g2,
                                             const float* b2, const float* g3, const float* b3) {
   using S = Smem<IN, NH>;
   stage_matrices<IN, NH>(smem, W1, W2t, W3t);
-  float4* gb = reinterpret_cast<float4*>(smem + S::gb);
   for (int p = threadIdx.x; p < 64; p += blockDim.x) {
-    gb[p] = gate_pair(g1, b1, p);
-    gb[64 + p] = gate_pair(g2, b2, p);
-    gb[128 + p] = gate_pair(g3, b3, p);
+    if (ACT) {
+      uint2* gb = reinterpret_cast<uint2*>(smem + S::gb);
+      gb[p] = gate_pair_act(g1, b1, p);
+      gb[64 + p] = gate_pair_act(g2, b2, p);
+      gb[128 + p] = gate_pair_act(g3, b3, p);
+    } else {
+      float4* gb = reinterpret_cast<float4*>(smem + S::gb);
+      gb[p] = gate_pair(g1, b1, p);
+      gb[64 + p] = gate_pair(g2, b2, p);
+      gb[128 + p] = gate_pair(g3, b3, p);
+    }
   }
   staging_done();
 }
@@ -332,9 +349,73 @@ __device__ __forceinline__ void first_product(float (&acc)[ACC], const float* __
 }
 
 // acc <- softplus(gamma * (acc + bias)), and with NORM each row is scaled by
-// rsqrt(max(sum of squares, 1e-24)). gb: the layer's 64 float4 (g, g b, g, g b).
-template <bool NORM>
-__device__ __forceinline__ void gate_band(float (&acc)[ACC], const float4* gb, int q) {
+// rsqrt(max(sum of squares, 1e-24)). gates: the layer's 64 float4 (g, g b, g,
+// g b) or, with ACT, 64 uint2 of bf16 (g, b) pairs (gate_band_act).
+template <bool NORM, bool ACT = false>
+__device__ __forceinline__ void gate_band(float (&acc)[ACC], const unsigned char* gates, int q);
+
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+__device__ __forceinline__ uint32_t u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The gate and softplus of two pre-activations of one row (columns 2p and
+// 2p + 1) in bf16, every operation rounded: o = g (bf16(acc) + b), then
+// log(1 + exp(-|o|)) + 0.5 (o + |o|). g and b are the columns' bf16 pairs.
+__device__ __forceinline__ __nv_bfloat162 act_softplus2(float a0, float a1, uint32_t g,
+                                                        uint32_t b) {
+  const __nv_bfloat162 o = __hmul2(bf2(g), __hadd2(__floats2bfloat162_rn(a0, a1), bf2(b)));
+  const __nv_bfloat162 ax = __habs2(o);
+  const uint32_t axu = u32(ax);
+  const __nv_bfloat162 e = __floats2bfloat162_rn(ex2_approx(-1.4426950408889634f * bf16_lo(axu)),
+                                                 ex2_approx(-1.4426950408889634f * bf16_hi(axu)));
+  const uint32_t ope = u32(__hadd2(e, __float2bfloat162_rn(1.0f)));
+  const __nv_bfloat162 l = __floats2bfloat162_rn(lg2_approx(bf16_lo(ope)) * 0.6931471805599453f,
+                                                 lg2_approx(bf16_hi(ope)) * 0.6931471805599453f);
+  return __hadd2(l, __hmul2(__hadd2(o, ax), __float2bfloat162_rn(0.5f)));
+}
+
+// The ACT band (NORM always): every value of acc leaves it a bf16 value. The
+// squares are rounded to bf16 and summed in float32; h = bf16(o * bf16(rsqrt)).
+__device__ __forceinline__ void gate_band_act(float (&acc)[ACC], const uint2* gb, int q) {
+  uint32_t v[32];  // (row g, row g + 8) x 16 column pairs, packed
+  float ss0 = 0.0f, ss1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint2 p = gb[4 * j + q];
+    const __nv_bfloat162 v0 = act_softplus2(acc[4 * j], acc[4 * j + 1], p.x, p.y);
+    const __nv_bfloat162 v1 = act_softplus2(acc[4 * j + 2], acc[4 * j + 3], p.x, p.y);
+    v[2 * j] = u32(v0);
+    v[2 * j + 1] = u32(v1);
+    const uint32_t s0 = u32(__hmul2(v0, v0)), s1 = u32(__hmul2(v1, v1));
+    ss0 += bf16_lo(s0);
+    ss0 += bf16_hi(s0);
+    ss1 += bf16_lo(s1);
+    ss1 += bf16_hi(s1);
+  }
+  const __nv_bfloat162 r0 = __float2bfloat162_rn(rsqrtf(fmaxf(quad_sum(ss0), 1e-24f)));
+  const __nv_bfloat162 r1 = __float2bfloat162_rn(rsqrtf(fmaxf(quad_sum(ss1), 1e-24f)));
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t h0 = u32(__hmul2(bf2(v[2 * j]), r0));
+    const uint32_t h1 = u32(__hmul2(bf2(v[2 * j + 1]), r1));
+    acc[4 * j] = bf16_lo(h0);
+    acc[4 * j + 1] = bf16_hi(h0);
+    acc[4 * j + 2] = bf16_lo(h1);
+    acc[4 * j + 3] = bf16_hi(h1);
+  }
+}
+
+template <bool NORM, bool ACT>
+__device__ __forceinline__ void gate_band(float (&acc)[ACC], const unsigned char* gates, int q) {
+  static_assert(NORM || !ACT, "the bf16-activation band belongs to the normed trunk");
+  if constexpr (ACT) {
+    gate_band_act(acc, reinterpret_cast<const uint2*>(gates), q);
+    return;
+  }
+  const float4* gb = reinterpret_cast<const float4*>(gates);
   float ss0 = 0.0f, ss1 = 0.0f;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -367,19 +448,20 @@ __device__ __forceinline__ void gate_band(float (&acc)[ACC], const float4* gb, i
   }
 }
 
-// The three layers for the thread's two rows; on exit acc holds h (float32).
-template <int IN, int NH, bool NORM>
+// The three layers for the thread's two rows; on exit acc holds h (float32;
+// bf16 values with ACT).
+template <int IN, int NH, bool NORM, bool ACT = false>
 __device__ __forceinline__ void trunk(float (&acc)[ACC], const float* __restrict__ x,
                                       long long M, long long r0, unsigned char* smem, int q) {
   using S = Smem<IN, NH>;
-  const float4* gb = reinterpret_cast<const float4*>(smem + S::gb);
+  const unsigned char* gb = smem + S::gb;
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   first_product<IN>(acc, x, M, r0, reinterpret_cast<const float*>(smem + S::w1), q);
-  gate_band<NORM>(acc, gb, q);
+  gate_band<NORM, ACT>(acc, layer_gates<ACT>(gb, 0), q);
   hidden_product(acc, base + S::w2);
-  gate_band<NORM>(acc, gb + 64, q);
+  gate_band<NORM, ACT>(acc, layer_gates<ACT>(gb, 1), q);
   hidden_product(acc, base + S::w3);
-  gate_band<NORM>(acc, gb + 128, q);
+  gate_band<NORM, ACT>(acc, layer_gates<ACT>(gb, 2), q);
 }
 
 // One head over the fragment: lane q of a quad gets, for feature q, the sums

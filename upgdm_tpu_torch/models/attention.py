@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from .dropout import Dropout
+from .layers import Linear
 
 __all__ = ["DSAttention", "AttentionLayer"]
 
@@ -52,10 +53,10 @@ class AttentionLayer(nn.Module):
         super().__init__()
         self.d_model = d_model
         self.n_heads = n_heads
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.query = Linear(d_model, d_model)
+        self.key = Linear(d_model, d_model)
+        self.value = Linear(d_model, d_model)
+        self.out = Linear(d_model, d_model)
         self.inner = DSAttention(mask_flag, attention_dropout)
 
     def forward(self, queries, keys, values, tau=None, delta=None, gen=None):

@@ -32,6 +32,19 @@ EPS = 10e-8  # 1e-7, the reference's epsilon
 __all__ = ["EPS", "DiffusionWrapperBase"]
 
 
+class _LossCall(nn.Module):
+    """A module over a wrapper's ``net`` whose call is the wrapper's loss, so
+    that ``torch.func.functional_call`` can swap the net's parameters."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.net = model.net
+        self.loss_fn = model.loss_fn
+
+    def forward(self, batch, **kw):
+        return self.loss_fn(batch, **kw)
+
+
 class DiffusionWrapperBase:
     scaler_axis = 0  # flat series
 
@@ -127,7 +140,10 @@ class DiffusionWrapperBase:
         return self.dtype_param("sampling_dtype", default)
 
     def as_batch(self, batch) -> torch.Tensor:
-        """A batch (numpy or tensor) as float32 on the model's device."""
+        """A batch (numpy or tensor) as float32 on the model's device; a bf16
+        tensor (``cast_loss``) keeps its type."""
+        if isinstance(batch, torch.Tensor) and batch.dtype == torch.bfloat16:
+            return batch.to(self.device)
         return torch.as_tensor(batch, dtype=torch.float32, device=self.device)
 
     def split_batch(self, batch):
@@ -143,6 +159,19 @@ class DiffusionWrapperBase:
         return batch_x, batch_y
 
     # -- training contract --------------------------------------------------
+    def cast_loss(self, batch, dtype: torch.dtype, **kw) -> torch.Tensor:
+        """``loss_fn(batch, **kw)`` on ``dtype`` copies of every float32
+        parameter and of a float32 batch, cast back to float32: the JAX
+        package's ``train_dtype`` (``train/loop.py:54-67``). The copies are
+        differentiable casts, so the gradients land on the float32 master
+        weights; the layers promote as flax's do (``models/layers.py``)."""
+        params = {"net." + name: p.to(dtype) if p.dtype == torch.float32 else p
+                  for name, p in self.net.named_parameters()}
+        if isinstance(batch, torch.Tensor) and batch.dtype == torch.float32:
+            batch = batch.to(dtype)
+        return torch.func.functional_call(_LossCall(self), params, (batch,), kw).float()
+
+
     def trainable_mask(self, select: Optional[str] = None) -> Dict[str, bool]:
         """{top-level name of ``self.net``: trained or frozen}."""
         raise NotImplementedError

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Linear
+
 __all__ = ["ConditionalLinear", "NsDiffDenoiser", "TMDMDenoiser", "HIDDEN"]
 
 HIDDEN = 128
@@ -28,7 +30,7 @@ class ConditionalLinear(nn.Module):
 
     def __init__(self, num_in: int, num_out: int, n_steps: int):
         super().__init__()
-        self.Dense_0 = nn.Linear(num_in, num_out)
+        self.Dense_0 = Linear(num_in, num_out)
         self.embed = nn.Parameter(torch.rand(n_steps, num_out))  # U(0, 1) as flax
 
     def forward(self, x, t):
@@ -52,8 +54,8 @@ class NsDiffDenoiser(nn.Module):
         self.lin1 = ConditionalLinear(3 * enc_in, hidden, n_steps)
         self.lin2 = ConditionalLinear(hidden, hidden, n_steps)
         self.lin3 = ConditionalLinear(hidden, hidden, n_steps)
-        self.lin4 = nn.Linear(hidden, enc_in)
-        self.sigma_lin = nn.Linear(hidden, enc_in)
+        self.lin4 = Linear(hidden, enc_in)
+        self.sigma_lin = Linear(hidden, enc_in)
 
     def forward(self, y_t, y_0_hat, g_x, t):
         h = torch.cat([y_t, y_0_hat, g_x], dim=-1)
@@ -87,7 +89,7 @@ class TMDMDenoiser(nn.Module):
         self.lin1 = ConditionalLinear(in_dim, hidden, n_steps)
         self.lin2 = ConditionalLinear(hidden, hidden, n_steps)
         self.lin3 = ConditionalLinear(hidden, hidden, n_steps)
-        self.lin4 = nn.Linear(hidden, enc_in)
+        self.lin4 = Linear(hidden, enc_in)
 
     def forward(self, x_emb, y_t, y_0_hat, t):
         if self.cat_y_pred:

@@ -2,7 +2,9 @@
 
 Counterpart of ``DataEmbedding`` in ``upgdm_tpu/models/embedding.py``: a
 circular Conv1d (k=3, no bias) over time plus the fixed sin/cos position
-table, then dropout (active only when a generator is passed).
+table, then dropout (active only when a generator is passed). The table is
+float32 and, as the JAX package's constant, promotes a bf16 token embedding
+to float32.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .dropout import Dropout
+from .layers import Conv1d
 
 __all__ = ["positional_encoding_table", "CircularConv1d", "TokenEmbedding", "DataEmbedding"]
 
@@ -34,7 +37,7 @@ class CircularConv1d(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size: int = 3):
         super().__init__()
         self.pad = kernel_size // 2
-        self.Conv_0 = nn.Conv1d(in_features, features, kernel_size, bias=False)
+        self.Conv_0 = Conv1d(in_features, features, kernel_size, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.pad(x.transpose(1, 2), (self.pad, self.pad), mode="circular")
@@ -63,5 +66,5 @@ class DataEmbedding(nn.Module):
         )
 
     def forward(self, x, gen=None):
-        out = self.TokenEmbedding_0(x) + self.pe[: x.shape[1]].to(x.dtype)[None]
+        out = self.TokenEmbedding_0(x) + self.pe[: x.shape[1]][None]
         return self.dropout(out, gen)

@@ -25,6 +25,7 @@ from torch import nn
 from .attention import AttentionLayer
 from .dropout import Dropout
 from .embedding import DataEmbedding
+from .layers import LayerNorm, Linear, promote
 from .sigma_estimation import LN_EPS
 
 __all__ = ["Projector", "NSEncoder", "NSDecoder", "NSTransformer", "NSTransformerVAE"]
@@ -52,10 +53,10 @@ class Projector(nn.Module):
         # its name matches flax's series_conv_kernel; torch layout [1, S, k]
         self.series_conv_kernel = nn.Parameter(torch.zeros(1, seq_len, kernel_size))
         dims = list(hidden_dims)
-        layers = [nn.Linear(2 * enc_in, dims[0])]
+        layers = [Linear(2 * enc_in, dims[0])]
         for i in range(hidden_layers - 1):
-            layers.append(nn.Linear(dims[i], dims[i + 1]))
-        layers.append(nn.Linear(dims[hidden_layers - 1], output_dim, bias=False))
+            layers.append(Linear(dims[i], dims[i + 1]))
+        layers.append(Linear(dims[hidden_layers - 1], output_dim, bias=False))
         self.n_dense = len(layers)
         for i, layer in enumerate(layers):
             setattr(self, f"Dense_{i}", layer)
@@ -63,7 +64,7 @@ class Projector(nn.Module):
     def forward(self, x, stats):
         B = x.shape[0]
         padded = F.pad(x, (self.pad, self.pad), mode="circular")
-        out = F.conv1d(padded, self.series_conv_kernel.to(x.dtype))  # [B, 1, E]
+        out = F.conv1d(*promote(padded, self.series_conv_kernel))  # [B, 1, E]
         h = torch.cat([out, stats], dim=1).reshape(B, -1)
         for i in range(self.n_dense - 1):
             h = F.relu(getattr(self, f"Dense_{i}")(h))
@@ -74,10 +75,10 @@ class NSEncoderLayer(nn.Module):
     def __init__(self, d_model, d_ff, n_heads, dropout=0.05, activation="gelu"):
         super().__init__()
         self.AttentionLayer_0 = AttentionLayer(d_model, n_heads, False, dropout)
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.Dense_0 = nn.Linear(d_model, d_ff)
-        self.Dense_1 = nn.Linear(d_ff, d_model)
-        self.LayerNorm_1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
+        self.Dense_0 = Linear(d_model, d_ff)
+        self.Dense_1 = Linear(d_ff, d_model)
+        self.LayerNorm_1 = LayerNorm(d_model, eps=LN_EPS)
         self.dropout = Dropout(dropout)
         self.act = _act(activation)
 
@@ -96,7 +97,7 @@ class NSEncoder(nn.Module):
         for i in range(e_layers):
             setattr(self, f"NSEncoderLayer_{i}",
                     NSEncoderLayer(d_model, d_ff, n_heads, dropout, activation))
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, tau=None, delta=None, gen=None):
         for i in range(self.n_layers):
@@ -108,12 +109,12 @@ class NSDecoderLayer(nn.Module):
     def __init__(self, d_model, d_ff, n_heads, dropout=0.05, activation="gelu"):
         super().__init__()
         self.self_attn = AttentionLayer(d_model, n_heads, True, dropout)
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
         self.cross_attn = AttentionLayer(d_model, n_heads, False, dropout)
-        self.LayerNorm_1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.Dense_0 = nn.Linear(d_model, d_ff)
-        self.Dense_1 = nn.Linear(d_ff, d_model)
-        self.LayerNorm_2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_1 = LayerNorm(d_model, eps=LN_EPS)
+        self.Dense_0 = Linear(d_model, d_ff)
+        self.Dense_1 = Linear(d_ff, d_model)
+        self.LayerNorm_2 = LayerNorm(d_model, eps=LN_EPS)
         self.dropout = Dropout(dropout)
         self.act = _act(activation)
 
@@ -135,8 +136,8 @@ class NSDecoder(nn.Module):
         for i in range(d_layers):
             setattr(self, f"NSDecoderLayer_{i}",
                     NSDecoderLayer(d_model, d_ff, n_heads, dropout, activation))
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.Dense_0 = nn.Linear(d_model, c_out)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
+        self.Dense_0 = Linear(d_model, c_out)
 
     def forward(self, x, cross, tau=None, delta=None, gen=None):
         for i in range(self.n_layers):
@@ -223,7 +224,7 @@ class NSTransformerVAE(NSTransformer):
         self.n_reparam_samples = n_reparam_samples
         for name in ("z_mean", "z_logvar", "z_out"):
             for i in (0, 1):
-                setattr(self, f"{name}_{i}", nn.Linear(d_model, d_model))
+                setattr(self, f"{name}_{i}", Linear(d_model, d_model))
 
     def _mlp(self, name, h):
         return getattr(self, f"{name}_1")(F.relu(getattr(self, f"{name}_0")(h)))

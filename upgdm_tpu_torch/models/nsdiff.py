@@ -9,9 +9,10 @@ Denoiser per step:
   - on the card every step goes through the K1 kernel
     (``ops/kernels/fused_denoiser.py``), whatever ``use_pallas_denoiser``
     says, with matmuls in ``sampling_matmul_dtype`` (default: the
-    ``sampling_dtype``, itself bf16 by default) and float32 activations —
-    the JAX package's kernel arm; its default flax-in-bf16 arm is XLA code
-    with no kernel to port;
+    ``sampling_dtype``, itself bf16 by default) and activations in
+    ``sampling_act_dtype`` (default float32; bf16 needs bf16 matmuls) — the
+    JAX package's kernel arm; its default flax-in-bf16 arm is XLA code with
+    no kernel to port;
   - on the CPU the plain ``NsDiffDenoiser`` runs in ``sampling_dtype``, as
     the JAX package's flax arm does.
 The chain state and the posterior arithmetic stay float32 on both.
@@ -134,17 +135,23 @@ class NsDiffModel(DiffusionWrapperBase):
     def denoiser(self) -> Optional[NsDiffDenoiser]:
         return self.net["model"] if self.has_denoiser else None
 
-    def _apply_f(self, batch_x, dtype=torch.float32, gen=None):
-        """f(x) in ``dtype`` (``gen`` turns dropout on), returned float32."""
+    def _apply_f(self, batch_x, dtype=None, gen=None):
+        """f(x) (``gen`` turns dropout on): with ``dtype`` the input and a cast
+        copy of the module in that type, else as they are; the output in the
+        type the module's promotions give (zeros of the input's type without
+        f)."""
         if not self.has_f:
             return batch_x.new_zeros(batch_x.shape[0], self.pred_len, self.dataset_nf)
-        y0_hat, _ = self._cast("cond_pred_model", dtype)(batch_x.to(dtype), gen)
-        return y0_hat.float()
+        if dtype is None:
+            return self.net["cond_pred_model"](batch_x, gen)[0]
+        return self._cast("cond_pred_model", dtype)(batch_x.to(dtype), gen)[0]
 
-    def _apply_g(self, batch_x, dtype=torch.float32):
+    def _apply_g(self, batch_x, dtype=None):
         if not self.has_g:
             return batch_x.new_ones(batch_x.shape[0], self.pred_len, self.dataset_nf)
-        return self._cast("cond_pred_model_g", dtype)(batch_x.to(dtype)).float()
+        if dtype is None:
+            return self.net["cond_pred_model_g"](batch_x)
+        return self._cast("cond_pred_model_g", dtype)(batch_x.to(dtype))
 
     @torch.inference_mode()
     def f_and_g(self, batch_x):
@@ -152,8 +159,8 @@ class NsDiffModel(DiffusionWrapperBase):
         both backbones (default float32)."""
         fg_dt = self.dtype_param("fg_sampling_dtype", "float32")
         batch_x = self.as_batch(batch_x)
-        y0_hat = self._apply_f(batch_x, fg_dt)
-        gx = self._apply_g(batch_x, fg_dt)
+        y0_hat = self._apply_f(batch_x, fg_dt).float()
+        gx = self._apply_g(batch_x, fg_dt).float()
         if self.has_g:
             gx = gx + EPS
         return y0_hat, gx
@@ -246,7 +253,8 @@ class NsDiffModel(DiffusionWrapperBase):
         """Single-step loss of any stage for batch [B, windows + pred_len, N]
         (NsDiff_model.py:111-179; variants :336-402): pretrain_f MSE,
         pretrain_g MSE of the square roots against the trailing variance,
-        else the KL step plus the f and g terms of the modules it has.
+        else the KL step plus the f and g terms of the modules it has. A
+        bf16 batch (``cast_loss``) keeps its type, as do the draws.
 
         ``train`` turns dropout on; draws come from ``generator`` (default
         the model's). ``t`` [B] and ``noise`` [B, pred_len, N] (the standard
@@ -273,8 +281,8 @@ class NsDiffModel(DiffusionWrapperBase):
         gx = self._apply_g(batch_x) + EPS
         loss1 = torch.mean((y0_hat - batch_y) ** 2) if self.has_f else 0.0
         loss2 = torch.mean((torch.sqrt(gx) - torch.sqrt(y_sigma)) ** 2) if self.has_g else 0.0
-        e = (torch.randn(batch_y.shape, generator=gen, device=self.device) if noise is None
-             else torch.as_tensor(noise, dtype=torch.float32, device=self.device))
+        e = (torch.randn(batch_y.shape, generator=gen, device=self.device, dtype=batch_y.dtype)
+             if noise is None else torch.as_tensor(noise, dtype=batch_y.dtype, device=self.device))
         c = D.nsdiff_gather(sched, t, batch_y)
         y_t = D.nsdiff_q_sample(batch_y, y0_hat, sched, t,
                                 e * torch.sqrt(D.nsdiff_forward_noise(c, gx, y_sigma)))

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.rolling import wv_sigma_trailing
+from .layers import LayerNorm, Linear
 
 __all__ = ["SigmaEstimation", "LN_EPS"]
 
@@ -23,12 +24,12 @@ class SigmaEstimation(nn.Module):
         super().__init__()
         self.pred_len = pred_len
         self.kernel_size = kernel_size
-        self.Dense_0 = nn.Linear(seq_len - kernel_size, hidden_size)
+        self.Dense_0 = Linear(seq_len - kernel_size, hidden_size)
         # torch LayerNorm([enc_in, hidden]): normalise AND affine over both dims
-        self.LayerNorm_0 = nn.LayerNorm([enc_in, hidden_size], eps=LN_EPS)
-        self.Dense_1 = nn.Linear(hidden_size, hidden_size)
-        self.LayerNorm_1 = nn.LayerNorm([enc_in, hidden_size], eps=LN_EPS)
-        self.Dense_2 = nn.Linear(hidden_size, pred_len)
+        self.LayerNorm_0 = LayerNorm([enc_in, hidden_size], eps=LN_EPS)
+        self.Dense_1 = Linear(hidden_size, hidden_size)
+        self.LayerNorm_1 = LayerNorm([enc_in, hidden_size], eps=LN_EPS)
+        self.Dense_2 = Linear(hidden_size, pred_len)
 
     def forward(self, x_enc: torch.Tensor) -> torch.Tensor:
         # x_enc: [B, T, N] -> sigma forecast [B, pred_len, N]

@@ -232,8 +232,9 @@ class TMDMModel(DiffusionWrapperBase):
         if t is None:
             t = self.antithetic_t(batch.shape[0], self.sched.num_timesteps, gen)
         t = torch.as_tensor(t, dtype=torch.long, device=self.device)
-        noise = (torch.randn(batch_y.shape, generator=gen, device=self.device) if noise is None
-                 else torch.as_tensor(noise, dtype=torch.float32, device=self.device))
+        noise = (torch.randn(batch_y.shape, generator=gen, device=self.device, dtype=batch_y.dtype)
+                 if noise is None
+                 else torch.as_tensor(noise, dtype=batch_y.dtype, device=self.device))
         y_t = D.card_q_sample(batch_y, y_0_hat, self.sched, t, noise)
         emb = self.net["enc_embedding"](batch_x, drop)
         output = self.net["model"](emb, y_t, y_0_hat, t)

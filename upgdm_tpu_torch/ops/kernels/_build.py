@@ -86,10 +86,10 @@ def build_library() -> Path:
 def _declare(lib):
     p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
     lib.upgdm_fused_denoiser.argtypes = [p, ll, i, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                         p, p, i, p]
+                                         p, p, i, i, p]
     lib.upgdm_fused_denoiser.restype = i
     lib.upgdm_chain_resident.argtypes = [p, p, ll, i, i, p, u64, i, i, p, p, p, p, p, p, p,
-                                         p, p, p, p, p, p, p, p, i, p]
+                                         p, p, p, p, p, p, p, p, i, i, p]
     lib.upgdm_chain_resident.restype = i
     lib.upgdm_fused_tmdm.argtypes = [p, ll, i, p, p, p, p, p, p, p, p, p, p, p, p, i, p]
     lib.upgdm_fused_tmdm.restype = i

@@ -20,7 +20,10 @@ On the card ``matmul_dtype="bfloat16"`` is the tensor-core kernel
 (``csrc/trunk_mma.cuh``): it takes W2/W3 in the tiled order of
 ``step_weights`` and every step's gates as one ``gate_table``;
 ``chain_operands`` makes both once for many launches. ``"float32"`` is the
-CUDA-core parity arm on the flax-layout weights.
+CUDA-core parity arm on the flax-layout weights. ``act_dtype="bfloat16"``
+runs the trunk's bands in bf16 (``fused_denoiser.act_band``) in either
+matmul type, as the JAX package's chain kernel allows; the tensor-core arm
+then reads bf16 (gamma, bias) pairs, so its gate table is bf16.
 """
 from __future__ import annotations
 
@@ -32,11 +35,13 @@ from . import _build
 from .fused_denoiser import (
     HIDDEN,
     MAX_F,
-    _EPS_NORM_SQ,
     _check_mat,
     _check_vec,
     _dot,
+    _f32_band,
     _hidden_shape,
+    act_band,
+    act_bf16,
     check_dtypes,
     denoiser_weights,
     step_weights,
@@ -68,27 +73,38 @@ def schedule_table(sched) -> np.ndarray:
     return np.ascontiguousarray(np.stack([np.asarray(r, np.float32) for r in rows], axis=0))
 
 
-def gate_table(gammas_tables, b1, b2, b3) -> torch.Tensor:
-    """Every step's gates as the tensor-core arm of K2 reads them: float32
+def gate_table(gammas_tables, b1, b2, b3, act_dtype="float32") -> torch.Tensor:
+    """Every step's gates as the tensor-core arm of K2 reads them:
     ``[T, 3, 64, 4]`` with entry (t, layer, p) = (g[2p], g[2p] * b[2p],
-    g[2p+1], g[2p+1] * b[2p+1]) for g = E_layer[t] and b the layer's bias
-    (``csrc/trunk_mma.cuh::gate_pair``; the gate is then one FMA)."""
+    g[2p+1], g[2p+1] * b[2p+1]) in float32 for g = E_layer[t] and b the
+    layer's bias (``csrc/trunk_mma.cuh::gate_pair``; the gate is then one
+    FMA) or, for ``act_dtype="bfloat16"``, (g[2p], g[2p+1], b[2p], b[2p+1])
+    in bf16 (``gate_pair_act``: the operands of the bf16x2 gate, whose add
+    and multiply round apart)."""
+    act = act_bf16(act_dtype)
     layers = []
     for E, b in zip(gammas_tables, (b1, b2, b3)):
         g = E.detach().float()
-        layers.append(torch.stack([g, g * b.detach().float()], dim=-1))  # [T, 128, 2]
+        b = b.detach().float().expand_as(g)
+        if act:  # [T, 64, (g, b), 2 columns]
+            layers.append(torch.stack([g.reshape(-1, HIDDEN // 2, 2),
+                                       b.reshape(-1, HIDDEN // 2, 2)], dim=2))
+        else:
+            layers.append(torch.stack([g, g * b], dim=-1))  # [T, 128, 2]
     T = layers[0].shape[0]
-    return torch.stack(layers, dim=1).reshape(T, 3, HIDDEN // 2, 4).contiguous()
+    tab = torch.stack(layers, dim=1).reshape(T, 3, HIDDEN // 2, 4)
+    return (tab.to(torch.bfloat16) if act else tab).contiguous()
 
 
-def chain_operands(gammas_tables, weights, mm: torch.dtype):
+def chain_operands(gammas_tables, weights, mm: torch.dtype, act_dtype="float32"):
     """(gates, weights) as K2 takes them on the card, made once for many
     launches: ``step_weights`` of the flax-layout tuple and, for bf16, the
-    ``gate_table`` of (E1, E2, E3) and the three trunk biases (float32 keeps
-    the tables). Operands already prepared come back unchanged."""
+    ``gate_table`` of (E1, E2, E3) and the three trunk biases for
+    ``act_dtype`` (float32 keeps the tables). Operands already prepared come
+    back unchanged."""
     weights = step_weights(weights, mm)
     if mm == torch.bfloat16 and not isinstance(gammas_tables, torch.Tensor):
-        gammas_tables = gate_table(gammas_tables, weights[1], weights[3], weights[5])
+        gammas_tables = gate_table(gammas_tables, weights[1], weights[3], weights[5], act_dtype)
     return gammas_tables, weights
 
 
@@ -164,21 +180,17 @@ def fused_chain_rows_reference(y0h, gx, tab, gammas_tables, weights, n_steps,
     or, with noise="philox", from the kernel's stream for rows 0..M-1 under
     ``seed`` (``philox_normal_reference``).
     """
-    mm = check_dtypes(matmul_dtype, act_dtype)
+    mm = check_dtypes(matmul_dtype, act_dtype, chain=True)
     if noise_mode not in _NOISE:
         raise ValueError(f"noise_mode={noise_mode!r}: expected one of {_NOISE}")
     if noise not in _NOISE_SOURCE:
         raise ValueError(f"noise={noise!r}: expected one of {_NOISE_SOURCE}")
+    band = act_band if act_bf16(act_dtype) else _f32_band
     W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = weights
     E1, E2, E3 = gammas_tables
     Fdim = y0h.shape[-1]
     w1y = W1[:Fdim]
     base1 = _dot(y0h, W1[Fdim:2 * Fdim], mm) + _dot(gx, W1[2 * Fdim:3 * Fdim], mm)
-
-    def band(out, g, b):
-        out = F.softplus(g * (out + b))
-        s2 = (out * out).sum(dim=-1, keepdim=True)
-        return out * torch.rsqrt(torch.clamp(s2, min=_EPS_NORM_SQ))
 
     def trunk(y, t):
         h = band(_dot(y, w1y, mm) + base1, E1[t], b1)
@@ -245,7 +257,8 @@ def fused_chain_rows(y0h, gx, tab, seed, gammas_tables, weights, n_steps,
         )
     if y0h.device.type != "cuda":
         raise ValueError(f"fused_chain_rows: unsupported device {y0h.device}")
-    mm = check_dtypes(matmul_dtype, act_dtype)
+    mm = check_dtypes(matmul_dtype, act_dtype, chain=True)
+    act = act_bf16(act_dtype)
     if noise_mode not in _NOISE:
         raise ValueError(f"noise_mode={noise_mode!r}: expected one of {_NOISE}")
     dev = y0h.device
@@ -260,7 +273,7 @@ def fused_chain_rows(y0h, gx, tab, seed, gammas_tables, weights, n_steps,
     tab = torch.as_tensor(tab, dtype=torch.float32, device=dev).contiguous()
     _check_mat("tab", tab, (7, n_steps), torch.float32, dev)
     bf16 = mm == torch.bfloat16
-    gammas_tables, weights = chain_operands(gammas_tables, weights, mm)
+    gammas_tables, weights = chain_operands(gammas_tables, weights, mm, act_dtype)
     W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = weights
     for name, b in (("b1", b1), ("b2", b2), ("b3", b3)):
         _check_vec(name, b, HIDDEN, dev)
@@ -272,8 +285,9 @@ def fused_chain_rows(y0h, gx, tab, seed, gammas_tables, weights, n_steps,
     _check_mat("W4", W4, (HIDDEN, Fdim), mm, dev)
     _check_mat("Ws", Ws, (HIDDEN, Fdim), mm, dev)
     ptr = lambda t: t.data_ptr()
-    if bf16:  # every step's (gamma, gamma * bias) pairs in one table
-        _check_mat("gates", gammas_tables, (n_steps, 3, HIDDEN // 2, 4), torch.float32, dev)
+    if bf16:  # every step's gate pairs in one table, bf16 for bf16 activations
+        _check_mat("gates", gammas_tables, (n_steps, 3, HIDDEN // 2, 4),
+                   torch.bfloat16 if act else torch.float32, dev)
         tables = (None, None, None, ptr(gammas_tables))
     else:
         E = tuple(e.float().contiguous() for e in gammas_tables)
@@ -287,14 +301,16 @@ def fused_chain_rows(y0h, gx, tab, seed, gammas_tables, weights, n_steps,
         ptr(y0h), ptr(gx), M, Fdim, n_steps, ptr(tab), int(seed) & (2**64 - 1),
         int(noise_mode == "prng"), int(bool(use_gx_directly)), *tables,
         ptr(W1), ptr(b1), ptr(W2), ptr(b2), ptr(W3), ptr(b3), ptr(W4), ptr(b4), ptr(Ws),
-        ptr(bs), ptr(out), int(bf16), stream,
+        ptr(bs), ptr(out), int(bf16), int(act), stream,
     )
     _build.check(code, "chain_resident")
     fused_chain_rows.launches += 1
+    fused_chain_rows.launches_act_bf16 += int(act)
     return out
 
 
 fused_chain_rows.launches = 0
+fused_chain_rows.launches_act_bf16 = 0
 
 
 def fused_nsdiff_chain(denoiser, y0_hat, gx, sched, seed, n_z_samples: int,

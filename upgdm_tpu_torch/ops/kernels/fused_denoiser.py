@@ -8,7 +8,10 @@ x = [y_t, y0_hat, gx] the step computes
 
 with ``l2norm(v) = v * rsqrt(max(sum v^2, 1e-24))``. Weights use the flax
 layout (``W [in, out]``). ``matmul_dtype="bfloat16"`` rounds both dot
-operands to bf16 and accumulates in float32; activations stay float32.
+operands to bf16 and accumulates in float32. ``act_dtype="bfloat16"`` (it
+needs bf16 matmuls, as in the JAX package) runs the gate, softplus and norm
+in bf16, rounded after every operation (``act_band``); the heads stay as in
+the float32 arm.
 
 ``fused_denoiser_rows`` launches the CUDA kernel for CUDA tensors and runs
 ``fused_denoiser_rows_reference`` (the plain PyTorch twin) for CPU tensors.
@@ -37,6 +40,8 @@ __all__ = [
     "denoiser_weights",
     "denoiser_gammas",
     "check_dtypes",
+    "act_bf16",
+    "act_band",
     "kernel_weights",
     "step_weights",
     "tile_b_operand",
@@ -49,14 +54,43 @@ _EPS_NORM_SQ = 1e-24
 _MATMUL = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
 
-def check_dtypes(matmul_dtype: str, act_dtype: str) -> torch.dtype:
-    """The matmul dtype; bf16 activations are not ported yet."""
-    if str(act_dtype) != "float32":
-        raise NotImplementedError("act_dtype='bfloat16' is not ported; use 'float32'")
+def _dtype(name: str, value) -> torch.dtype:
     try:
-        return _MATMUL[str(matmul_dtype)]
+        return _MATMUL[str(value)]
     except KeyError:
-        raise ValueError(f"matmul_dtype={matmul_dtype!r}: expected one of {sorted(_MATMUL)}") from None
+        raise ValueError(f"{name}={value!r}: expected one of {sorted(_MATMUL)}") from None
+
+
+def check_dtypes(matmul_dtype: str, act_dtype: str, chain: bool = False) -> torch.dtype:
+    """The matmul dtype, after the JAX package's rules: bf16 activations need
+    bf16 matmuls in the step kernel (``fused_denoiser.py:170-172``); the chain
+    kernel (``chain=True``) takes all four combinations."""
+    mm = _dtype("matmul_dtype", matmul_dtype)
+    if act_bf16(act_dtype) and mm == torch.float32 and not chain:
+        raise ValueError("act_dtype=bfloat16 requires matmul_dtype=bfloat16 "
+                         "(the trunk products consume the bf16 activations)")
+    return mm
+
+
+def act_bf16(act_dtype: str) -> bool:
+    """Whether ``act_dtype`` asks for bf16 activations (a typo raises)."""
+    return _dtype("act_dtype", act_dtype) == torch.bfloat16
+
+
+def act_band(out: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One hidden layer's band with bf16 activations, as the TPU kernels
+    compute it (``fused_denoiser.py:125-139``, ``chain_resident.py:87-93``):
+    the float32 product rounded to bf16, the gate g (o + b) and the
+    branch-free softplus log(1 + exp(-|o|)) + 0.5 (o + |o|) in bf16 with a
+    rounding after every operation, the squares rounded before a float32
+    sum, and h = o * bf16(rsqrt(max(s2, 1e-24))). Returns float32 holding
+    bf16 values."""
+    bf = torch.bfloat16
+    o = g.to(bf) * (out.to(bf) + b.to(bf))
+    ax = o.abs()
+    o = torch.log(1.0 + torch.exp(-ax)) + 0.5 * (o + ax)
+    s2 = (o * o).float().sum(dim=-1, keepdim=True)
+    return (o * torch.rsqrt(torch.clamp(s2, min=_EPS_NORM_SQ)).to(bf)).float()
 
 
 def denoiser_weights(denoiser) -> Tuple[torch.Tensor, ...]:
@@ -87,16 +121,21 @@ def _dot(a: torch.Tensor, w: torch.Tensor, mm: torch.dtype) -> torch.Tensor:
     return a @ w
 
 
+def _f32_band(out, g, b):
+    out = F.softplus(g * (out + b))
+    s2 = (out * out).sum(dim=-1, keepdim=True)
+    return out * torch.rsqrt(torch.clamp(s2, min=_EPS_NORM_SQ))
+
+
 def fused_denoiser_rows_reference(x, gammas, weights, matmul_dtype="float32",
                                   act_dtype="float32"):
     """Plain PyTorch twin of K1: x [M, 3F] -> (eps [M, F], sigma [M, F])."""
     mm = check_dtypes(matmul_dtype, act_dtype)
+    band = act_band if act_bf16(act_dtype) else _f32_band
     W1, b1, W2, b2, W3, b3, W4, b4, Ws, bs = weights
     h = x.float()
     for W, b, g in ((W1, b1, gammas[0]), (W2, b2, gammas[1]), (W3, b3, gammas[2])):
-        out = F.softplus(g * (_dot(h, W, mm) + b))
-        s2 = (out * out).sum(dim=-1, keepdim=True)
-        h = out * torch.rsqrt(torch.clamp(s2, min=_EPS_NORM_SQ))
+        h = band(_dot(h, W, mm), g, b)
     eps = _dot(h, W4, mm) + b4
     sigma = F.softplus(_dot(F.softplus(h), Ws, mm) + bs)
     return eps, sigma
@@ -211,14 +250,16 @@ def fused_denoiser_rows(x: torch.Tensor, gammas: Sequence[torch.Tensor], weights
     code = lib.upgdm_fused_denoiser(
         ptr(x), M, Fdim, ptr(g1), ptr(g2), ptr(g3), ptr(W1), ptr(b1), ptr(W2), ptr(b2),
         ptr(W3), ptr(b3), ptr(W4), ptr(b4), ptr(Ws), ptr(bs), ptr(eps), ptr(sigma),
-        int(mm == torch.bfloat16), stream,
+        int(mm == torch.bfloat16), int(act_bf16(act_dtype)), stream,
     )
     _build.check(code, "fused_denoiser")
     fused_denoiser_rows.launches += 1
+    fused_denoiser_rows.launches_act_bf16 += int(act_bf16(act_dtype))
     return eps, sigma
 
 
 fused_denoiser_rows.launches = 0
+fused_denoiser_rows.launches_act_bf16 = 0
 
 
 def fused_nsdiff_denoiser(denoiser, y_t, y_0_hat, g_x, t: int,

@@ -7,7 +7,10 @@ its shapes imply: the largest of three terms,
   the special-function unit: 16 results a clock on each SM.
 
 The peaks are the H100 SXM data sheet's dense rates. ``chip_smoke.py`` and
-``PERF.md`` state every kernel's time beside this bound.
+``PERF.md`` state every kernel's time beside this bound. The
+``act_dtype="bfloat16"`` arms of K1 and K2 issue the same exp, log and rsqrt
+results a row as their float32-activation arms (their extra bf16 roundings
+are ordinary instructions), so they share these bounds.
 """
 from __future__ import annotations
 

@@ -19,13 +19,20 @@ train/train_diffusion_timeseries.py:17-211):
 
 The step runs eagerly with autograd on the model's device. With
 ``net_param["train_dtype"]="bfloat16"`` (opt-in, as in the JAX package) the
-forward and backward run under ``torch.autocast``: the products take bf16
-copies of the float32 master weights and of their inputs; the loss, the
+loss runs on bf16 copies of every float32 parameter and of the batch and is
+cast back to float32 (``cast_loss``, the JAX package's semantics): the
 gradients, the master weights and Adam stay float32. Graph batches (``adj``)
 and data parallelism raise until their slices land.
+
+A run is deterministic given its seed on the card too, as the JAX package's
+is: ``run_training`` holds cuDNN to its deterministic algorithms while it
+runs. Without that the weight gradient of the NS-Transformer's circular
+token convolution went through an algorithm whose sums land in another
+order from run to run, and pretrain_f's scores wandered by a few percent.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from pathlib import Path
 from typing import Callable, Optional
@@ -37,7 +44,7 @@ from ..models.factory import diffusion_models
 from ..utils import io as uio
 from .optimizers import make_lr_schedule, make_optimizer
 
-__all__ = ["run_training", "make_train_step"]
+__all__ = ["run_training", "make_train_step", "deterministic_cudnn"]
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[str],
@@ -61,9 +68,10 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[st
             for g in optimizer.param_groups:
                 g["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
-        with torch.autocast(model.device.type, dtype=torch.bfloat16, enabled=bf16):
+        if bf16:
+            loss = model.cast_loss(batch, torch.bfloat16, select=select, train=True)
+        else:
             loss = model.loss_fn(batch, select=select, train=True)
-        loss = loss.float()
         loss.backward()
         value = loss.item()
         if math.isfinite(value):
@@ -72,6 +80,19 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[st
         return value
 
     return step
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (and no autotuning) inside, the
+    process's settings again after."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def _batches(n, batch_size, shuffle, rng):
@@ -85,7 +106,16 @@ def run_training(trainset, validationset, train_param: dict, net_param: dict,
                  seed: int = 0, model=None, dataset_param: Optional[dict] = None, device=None):
     """Train one configuration on stacked windows [num, T, F]; returns
     record_scores. The model is built from ``net_param`` on ``device``
-    (default the card) unless one is given."""
+    (default the card) unless one is given. One seed gives the same records
+    on the same device (``deterministic_cudnn``)."""
+    with deterministic_cudnn():
+        return _run_training(trainset, validationset, train_param, net_param, loss_param,
+                             optimizer_param, records_path, adj, seed, model, dataset_param,
+                             device)
+
+
+def _run_training(trainset, validationset, train_param, net_param, loss_param,
+                  optimizer_param, records_path, adj, seed, model, dataset_param, device):
     if adj is not None:
         raise NotImplementedError("graph batches (adj) wait for the graph families")
     if train_param.get("dataparallel") or train_param.get("dataparallel_set"):
