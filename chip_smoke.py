@@ -31,8 +31,16 @@ and timed; the ``uncertainty_ews`` facade runs the trained SIS model from its
 checkpoint directory and trajectory file, straight from the device, through
 its cache and sidecar, and with bf16 activations (K1's act arm); a seeded
 pretrain_f of the demo runs twice with equal records, and the float32 step
-is timed with and without deterministic cuDNN. Every phase that fails exits
-non-zero. Progress goes to
+is timed with and without deterministic cuDNN. Last, DiffSTG at the published
+model-comparison width on the tracked 30-node graph (no hand-written kernel
+is on its path): the cache runner over 16 windows (timed, one window
+profiled, the UGnet forward in bf16 and float32 and in two formulations of
+the transposed time conv, the card's float32 ensemble per sample against the
+CPU's, bf16 against float32 MPV), the card's loss and gradients against the
+CPU's, the train step, training through the ``adj`` path on a seeded corpus
+of the tracked 30- and 50-node graphs with the checkpoint swept, and the
+DiffSTG branch of ``uncertainty_ews`` (written, a cache hit, the sidecar).
+Every phase that fails exits non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
 last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
 kernel phases (build, K1, K2, K3 with their times): the short loop for work on
@@ -94,6 +102,28 @@ DEMO_STAGES = (("pretrain_f", "pre_model_F"), ("pretrain_g", "pre_model_G"),
 SIS_MODEL = REPO / "demo_fig1/ews_results/model_compare/NsDiff/SIS"
 SIS_DATA = REPO / "demo_fig1/spdata_sde_SIS/barabasi_albert_12_0/SIS_dynamic_eta0.0001d0.5_increase.pt"
 FACADE_REPS = 7  # timed uncertainty_ews calls; the median is reported, with min and max
+
+# DiffSTG at the published model-comparison width
+# (demo_zoo/ews_results/model_compare/DiffSTG/SIS/model_trained.yaml): ResGatedGraphConv,
+# d_h 4, multipliers [2, 2], 2 blocks, Td_h 10, T_h = T_p = 100, 200 training steps,
+# 20 DDIM cosine steps, 10 x 10 samples; on the tracked 30-node BA graph
+# (benchmarks/ab_diffstg.py:24), 16 windows at the interval step 50
+STG_PARAM = dict(
+    T_h=WINDOWS, T_p=PRED_LEN, F=1, windows=WINDOWS, pred_len=PRED_LEN, dataset_nf=1, d_h=4,
+    Td_h=10, channel_multipliers=[2, 2], n_blocks=2, gnn_name="ResGatedGraphConv",
+    gnn_param={"bias": True, "root_weight": True}, diffusion_steps=200,
+    diffusion_schedule="linear", inference_diffusion_steps=20, inference_trick="ddim",
+    inference_schedule="cosine", loss_weight_schedule="constant", mask_ratio=0.0,
+    parallel_sampling=10, sequential_sampling=10, scaler_type="StandardScaler",
+    task_model="DiffSTG",
+)
+STG_GRAPHS = (REPO / "dataset/train_dataset_graph/barabasi_albert_30_0.graphml",
+              REPO / "dataset/train_dataset_graph/barabasi_albert_50_0.graphml")
+STG_WINDOWS, STG_STEP, STG_TRAIN_B = 16, 50, 16
+# the JAX package's bars: a sampled chain against its plain twin
+# (tests/test_torch_parity.py) and bf16 against float32 sampling
+# (tests/test_models_e2e.py:171)
+STG_RTOL, STG_ATOL, STG_MPV_REL = 2e-4, 2e-5, 0.01
 
 
 def emit(**kw):
@@ -560,9 +590,10 @@ def check_chain_kernel(dev, seed=6, act="float32"):
 
 
 # -- training ------------------------------------------------------------------------
-def train_step_ms(model, select, batch, dtype):
+def train_step_ms(model, select, batch, dtype, **step_kw):
     """(median ms of a train step by CUDA events over TRAIN_REPS steps after
-    two of warm-up, the losses) for one stage in float32 or bf16."""
+    two of warm-up, the losses) for one stage in float32 or bf16;
+    ``step_kw`` go to the step (a graph batch's ``adj``)."""
     import torch
 
     from upgdm_tpu_torch.train.loop import make_train_step
@@ -572,13 +603,13 @@ def train_step_ms(model, select, batch, dtype):
     opt = make_optimizer({"optimizer_name": "Adam", "lr": 1e-3}, model.net,
                          model.trainable_mask(select))
     step = make_train_step(model, opt, select)
-    losses = [step(batch) for _ in range(2)]
+    losses = [step(batch, **step_kw) for _ in range(2)]
     times = []
     for _ in range(TRAIN_REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        losses.append(step(batch))
+        losses.append(step(batch, **step_kw))
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -702,6 +733,319 @@ def demo_split():
     n_train = (int(len(dataset) * 0.9) // 32) * 32
     perm = np.random.default_rng(0).permutation(len(dataset))
     return dataset[perm[:n_train]], dataset[perm[n_train:]], dataset_param
+
+
+def stg_trajectory(n_nodes, T, seed=0):
+    """A seeded positive random walk [n_nodes, T] float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    walk = (rng.normal(size=(n_nodes, T)) * 0.01).cumsum(axis=1)
+    return (0.3 + walk + np.linspace(0.0, 0.4, T)[None]).astype(np.float32)
+
+
+def write_stg_corpus(root):
+    """A seeded spdata directory on the tracked 30- and 50-node BA graphs:
+    <root>/spdata/<g>/rec.pt (ys_dynamic [T, V]) with <root>/graphs/<g>.graphml."""
+    import numpy as np
+
+    from upgdm_tpu_torch.ops.graph import graphml_to_adjacency
+    from upgdm_tpu_torch.utils.io import save_pt
+
+    for i, src in enumerate(STG_GRAPHS):
+        name = src.stem
+        (root / "graphs").mkdir(parents=True, exist_ok=True)
+        (root / "graphs" / src.name).write_bytes(src.read_bytes())
+        n = graphml_to_adjacency(src).num_nodes
+        # 8 windows of W + P at STG_STEP, each emitted flipped and original
+        ys = stg_trajectory(n, WINDOWS + PRED_LEN + 7 * STG_STEP, seed=10 + i).T
+        save_pt({"ys_dynamic": ys, "ts_dynamic": np.arange(len(ys), dtype=np.float32) * 0.1,
+                 "tp_values": np.zeros(len(ys), np.float32)}, root / "spdata" / name / "rec.pt")
+
+
+class UGnetForwards:
+    """Counts UGnet forwards of every model (a global forward pre-hook)."""
+
+    def __init__(self):
+        import torch
+
+        from upgdm_tpu_torch.models.ugnet import UGnet
+
+        self.n = 0
+
+        def hook(module, args):
+            if isinstance(module, UGnet):
+                self.n += 1
+
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+
+
+def idle_share(fn, top=8):
+    """From one ``torch.profiler`` trace of fn() (device activity): host
+    seconds ended by a synchronise, summed kernel seconds, 1 - kernel / host,
+    the kernel count and the ``top`` kernel names by summed ms (the device
+    numbers None when the profiler sees no device time)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall, _ = host_s(fn)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"host_s": wall, "kernel_s": None, "idle_share": None, "kernels": 0}
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name[:90]] += e.time_range.elapsed_us() * 1e-3
+    busy = sum(by_name.values()) * 1e-3
+    return {"host_s": wall, "kernel_s": busy, "idle_share": 1.0 - busy / wall,
+            "kernels": len(kernels), "top_ms": by_name.most_common(top)}
+
+
+def stg_train_step(batch, adj):
+    """(median ms of a float32 DiffSTG train step at the published width,
+    ``train_step_ms``, a profile of one more step) under ``run_training``'s
+    deterministic cuDNN."""
+    import numpy as np
+    import torch
+
+    from upgdm_tpu_torch.models.diffstg import DiffSTGModel
+    from upgdm_tpu_torch.train.loop import deterministic_cudnn, make_train_step
+    from upgdm_tpu_torch.train.optimizers import make_optimizer
+
+    model = DiffSTGModel(STG_PARAM, seed=2, device="cuda")
+    batch = torch.as_tensor(batch, device="cuda")
+    adj = torch.as_tensor(np.stack([adj] * len(batch)), device="cuda")
+    with deterministic_cudnn():
+        ms, losses = train_step_ms(model, None, batch, "float32", adj=adj)
+        step = make_train_step(model, make_optimizer({"optimizer_name": "Adam", "lr": 1e-3},
+                                                     model.net, model.trainable_mask()), None)
+        profiled = idle_share(lambda: step(batch, adj=adj))
+    require(np.isfinite(losses).all(), "diffstg_train", f"step losses {losses}")
+    return ms, profiled
+
+
+def ugnet_forward_ms(adj, S):
+    """Median ms (CUDA events, 5 after 2) of one UGnet forward at the
+    published width over S samples, in bf16 and float32, with the port's
+    TimeConvTranspose (the transposed conv of the flipped kernel) and with
+    the correlation over the zero-stuffed, padded input it replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from upgdm_tpu_torch.models import ugnet
+    from upgdm_tpu_torch.models.diffstg import DiffSTGModel
+    from upgdm_tpu_torch.models.layers import promote
+
+    def padded(self, x):
+        def fn(h):
+            if self.s > 1:
+                stuffed = h.new_zeros(h.shape[:-1] + ((h.shape[-1] - 1) * self.s + 1,))
+                stuffed[..., :: self.s] = h
+                h = stuffed
+            return F.conv1d(*promote(h, self.weight, self.bias), padding=self.k - 1 - self.p)
+
+        return ugnet._over_time(x, fn)
+
+    model = DiffSTGModel(STG_PARAM, seed=0, device="cuda")
+    transposed = ugnet.TimeConvTranspose.forward
+    V = adj.shape[-1]
+    out = {}
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            net = model._cast("model", dt)
+            x = torch.randn(S, V, WINDOWS + PRED_LEN, 1, device="cuda").to(dt)
+            t = torch.full((S,), 57.0, device="cuda")
+            a = torch.as_tensor(adj, device="cuda")[None].to(dt)
+            for name, fwd in (("transposed", transposed), ("padded_conv1d", padded)):
+                ugnet.TimeConvTranspose.forward = fwd
+                with torch.inference_mode():
+                    out[f"{str(dt)[6:]}_{name}"] = cuda_ms(lambda: net(x, t, x, a), reps=5)
+    finally:
+        ugnet.TimeConvTranspose.forward = transposed
+    return out
+
+
+def stg_off_by(got, want, rtol, atol):
+    """Largest |got - want| - (atol + rtol |want|): <= 0 within the bar."""
+    import numpy as np
+
+    return float(np.max(np.abs(got - want) - (atol + rtol * np.abs(want))))
+
+
+def diffstg_phases(smi_line, zero_counts, kernel_counts):
+    """DiffSTG on the card: the cache runner over STG_WINDOWS windows
+    (``diffstg``), training through the ``adj`` path and the swept checkpoint
+    (``diffstg_train``), and the DiffSTG branch of ``uncertainty_ews``
+    (``diffstg_facade``). No hand-written kernel is on this path (the JAX
+    package runs DiffSTG in plain XLA): ``kernel_counts()`` stays zero."""
+    import numpy as np
+    import torch
+
+    from upgdm_tpu_torch.cli.train_driver import hold_out_score
+    from upgdm_tpu_torch.cli.train_spdata import build_dataset
+    from upgdm_tpu_torch.eval.uncertainty import (
+        load_model_from_dir, run_diffstg_evaluation_cache, summarize_pred_future_list,
+        uncertainty_ews,
+    )
+    from upgdm_tpu_torch.models.diffstg import DiffSTGModel
+    from upgdm_tpu_torch.ops.graph import graphml_to_adjacency
+    from upgdm_tpu_torch.utils.io import save_checkpoint, save_config_yaml, save_pt
+
+    forwards = UGnetForwards()
+    graph = graphml_to_adjacency(STG_GRAPHS[0])
+    V = graph.num_nodes
+    traj = stg_trajectory(V, WINDOWS + (STG_WINDOWS - 1) * STG_STEP)  # STG_WINDOWS windows
+    idx = (np.arange(STG_WINDOWS) * STG_STEP)[:, None] + np.arange(WINDOWS)[None]
+    wins = np.ascontiguousarray(traj[:, idx].transpose(1, 0, 2))[..., None]  # [n, V, W, 1]
+    steps = STG_PARAM["inference_diffusion_steps"]
+    S = STG_PARAM["parallel_sampling"] * STG_PARAM["sequential_sampling"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- diffstg: the cache runner at full width --------------------------------
+        model = DiffSTGModel(STG_PARAM, seed=0, device="cuda")
+        model.scaler_fit(wins.reshape(-1, WINDOWS, 1))
+        run_diffstg_evaluation_cache(model, wins[:1], PRED_LEN, graph, tmp / "warm.pt",
+                                     device="cuda")
+        zero_counts()
+        forwards.n = 0
+        t_sweep, ens = host_s(lambda: run_diffstg_evaluation_cache(
+            model, wins, PRED_LEN, graph, tmp / "sweep.pt", device="cuda"))
+        n_fwd, launched = forwards.n, kernel_counts()
+        _, mpv = summarize_pred_future_list(ens, model=model)
+        mpv = np.asarray(mpv)
+        profiled = idle_share(lambda: model.evaluation_step(
+            {"x": model.scaler_transform(wins[0]), "adj": graph.adj}))
+        forward_ms = ugnet_forward_ms(graph.adj, S)
+        # card against CPU, float32 on both, the same weights and draws: 2 samples
+        rng = np.random.default_rng(1)
+        hist = np.asarray(model.scaler_transform(wins[0]), np.float32)
+        f32 = dict(STG_PARAM, sampling_dtype="float32")
+        card32 = DiffSTGModel(f32, seed=0, device="cuda")
+        cpu32 = DiffSTGModel(f32, seed=0, device="cpu")
+        draws = (rng.normal(size=(2, V, 2 * WINDOWS, 1)).astype(np.float32),
+                 rng.normal(size=(steps, 2, V, 2 * WINDOWS, 1)).astype(np.float32))
+        e_card = card32.sample_fn(hist, graph.adj, n_samples=2, noise=draws).cpu().numpy()
+        e_cpu = cpu32.sample_fn(hist, graph.adj, n_samples=2, noise=draws).numpy()
+        card_cpu = stg_off_by(e_card, e_cpu, STG_RTOL, STG_ATOL)
+        # bf16 (the default) against float32 sampling on the card, the same draws
+        draws = (rng.normal(size=(S, V, 2 * WINDOWS, 1)).astype(np.float32),
+                 rng.normal(size=(steps, S, V, 2 * WINDOWS, 1)).astype(np.float32))
+        m32 = card32.sample_fn(hist, graph.adj, n_samples=S, noise=draws).var(dim=-1).mean()
+        card32.net_param["sampling_dtype"] = "bfloat16"
+        m16 = card32.sample_fn(hist, graph.adj, n_samples=S, noise=draws).var(dim=-1).mean()
+        bf16_rel = abs(m16.item() / m32.item() - 1.0)
+        del card32, cpu32
+        emit(phase="diffstg", card=smi_line, windows=STG_WINDOWS, nodes=V, samples=S,
+             steps=steps, seconds=t_sweep, windows_per_hr=STG_WINDOWS / t_sweep * 3600.0,
+             ugnet_forwards_per_window=n_fwd / STG_WINDOWS, kernel_launches=launched,
+             mpv=mpv.tolist(), window_profiled=profiled, ugnet_forward_ms=forward_ms,
+             card_vs_cpu_float32_off_bar=card_cpu, bf16_vs_float32_mpv_rel=bf16_rel,
+             bars={"rtol": STG_RTOL, "atol": STG_ATOL, "mpv_rel": STG_MPV_REL})
+        require(n_fwd == steps * STG_WINDOWS and not any(launched), "diffstg",
+                f"{n_fwd} UGnet forwards for {STG_WINDOWS} windows, kernels {launched}")
+        require(mpv.shape == (STG_WINDOWS,) and np.isfinite(mpv).all() and (mpv > 0).all(),
+                "diffstg", f"bad MPV {mpv}")
+        require(card_cpu <= 0, "diffstg", f"card off the CPU by {card_cpu} over the bar")
+        require(bf16_rel <= STG_MPV_REL, "diffstg", f"bf16 MPV {bf16_rel:.4%} off float32")
+
+        # -- diffstg_train: loss and gradients, run_training, the swept checkpoint ----
+        seams = dict(adj=torch.as_tensor(np.stack([graph.adj] * 4)),
+                     t=torch.tensor([1, 57, 133, 200]),
+                     noise=torch.as_tensor(rng.normal(size=(4, V, 2 * WINDOWS, 1)),
+                                           dtype=torch.float32))
+        batch = torch.as_tensor(rng.normal(size=(4, V, 2 * WINDOWS, 1)), dtype=torch.float32)
+        try:
+            rel, worst = card_vs_cpu(DiffSTGModel(STG_PARAM, seed=1, device="cuda"),
+                                     DiffSTGModel, STG_PARAM, batch, seams)
+        except AssertionError as exc:
+            fail("diffstg_train", str(exc))
+        step_ms, step_profile = stg_train_step(
+            rng.normal(size=(STG_TRAIN_B, V, WINDOWS + PRED_LEN, 1)).astype(np.float32),
+            graph.adj)
+        write_stg_corpus(tmp / "corpus")
+        dataset_param = dict(spdata_file_path=str(tmp / "corpus/spdata"),
+                             graph_file_path=str(tmp / "corpus/graphs"), filter="*",
+                             sampling_t=0.1, windows=WINDOWS, pred_len=PRED_LEN,
+                             interval_step=STG_STEP)
+        x, bundle, nf = build_dataset(dataset_param)
+        train_param = dict(train_model_select=None, train_batch_size=STG_TRAIN_B,
+                           val_batch_size=STG_TRAIN_B, train_epochs=2, test_set=True,
+                           ckpt=False, traindata_size=0.75, model_evaluation="hold_out")
+        opt = dict(optimizer_name="Adam", lr=1e-4, weight_decay=1e-5, scheduler_set=False)
+        zero_counts()
+        t_train, rs = host_s(lambda: hold_out_score(
+            x, train_param, dict(STG_PARAM), {"loss_metric": "KL divergence"}, opt,
+            tmp / "train", adj_bundle=bundle, dataset_param=dataset_param, device="cuda"))
+        n_steps = 2 * -(-int(len(x) * 0.75) // STG_TRAIN_B)
+        trained, _ = load_model_from_dir(tmp / "train/hold_out/trained_model", device="cuda")
+        forwards.n = 0
+        t_tsweep, tens = host_s(lambda: run_diffstg_evaluation_cache(
+            trained, wins[:2], PRED_LEN, graph, tmp / "trained.pt", device="cuda"))
+        _, tmpv = summarize_pred_future_list(tens, model=trained)
+        tmpv = np.asarray(tmpv)
+        emit(phase="diffstg_train", card=smi_line, card_vs_cpu={"loss_rel": rel,
+                                                              "worst_grad_err_over_bar": worst},
+             windows=len(x), nodes=int(x.shape[1]), real_nodes=bundle[2].sum(axis=1).tolist(),
+             batch=STG_TRAIN_B, step_ms=step_ms, step_profiled=step_profile, steps=n_steps,
+             seconds=t_train, train_scores=rs["train_scores"],
+             val_scores=rs["val_scores"], kernel_launches=kernel_counts(),
+             swept={"windows": 2, "seconds": t_tsweep, "ugnet_forwards": forwards.n,
+                    "mpv": tmpv.tolist()})
+        require(np.isfinite(rs["train_scores"]).all() and np.isfinite(rs["val_scores"]).all()
+                and len(rs["train_scores"]) == 2, "diffstg_train", f"records {rs}")
+        require(x.shape[1] == 50 and sorted(bundle[2].sum(axis=1).tolist()) == [30, 50],
+                "diffstg_train", f"padding: {x.shape}, masks {bundle[2].sum(axis=1)}")
+        require(forwards.n == 2 * steps and np.isfinite(tmpv).all() and (tmpv > 0).all(),
+                "diffstg_train", f"swept checkpoint: {forwards.n} forwards, MPV {tmpv}")
+
+        # -- diffstg_facade: uncertainty_ews from a checkpoint directory -------------
+        model_dir = tmp / "facade_model"
+        save_checkpoint(model_dir, "model_trained", model.state_dict(), STG_PARAM)
+        save_config_yaml(model_dir / "model_trained.yaml", {
+            "dataset": {"windows": WINDOWS, "pred_len": PRED_LEN, "sampling_t": 0.1,
+                        "interval_step": STG_STEP},
+            "train": {"train_model_select": None}, "net": STG_PARAM})
+        data_file = tmp / "SIS_dynamic_increase.pt"
+        save_pt({"ys_dynamic": traj.T.copy(),
+                 "ts_dynamic": np.arange(traj.shape[1], dtype=np.float32) * 0.1,
+                 "tp_values": np.zeros(traj.shape[1], np.float32)}, data_file)
+
+        def facade():
+            forwards.n = 0
+            zero_counts()
+            t, r = host_s(lambda: uncertainty_ews(
+                model_save_file=model_dir, data_file=data_file, dynamic_type="SIS",
+                graph_file=STG_GRAPHS[0], cache_path=tmp / "facade", device="cuda",
+                cache_mode="write"))
+            return t, r, forwards.n, kernel_counts()
+
+        (tmp / "facade").mkdir()
+        t_write, r_write, f_write, l_write = facade()
+        t_hit, r_hit, f_hit, l_hit = facade()
+        cache = Path(r_write["cache_path"])
+        side = json.loads(cache.with_name(cache.name + ".mpv.json").read_text())
+        n_fw = len(r_write["ews"])
+        ews = np.asarray(r_write["ews"])
+        emit(phase="diffstg_facade", card=smi_line, windows=n_fw,
+             sample_window_step=r_write["sample_window_step"],
+             diffusion_steps=r_write["loaded_net_param"]["diffusion_steps"],
+             samples=r_write["pred_future_list"][0].shape[-1], seconds_write=t_write,
+             windows_per_hr=n_fw / t_write * 3600.0, seconds_cache_hit=t_hit,
+             ugnet_forwards={"write": f_write, "cache_hit": f_hit},
+             kernel_launches={"write": l_write, "cache_hit": l_hit}, mpv=ews.tolist(),
+             sidecar={"complete": side["complete"], "n_windows_done": side["n_windows_done"]})
+        require(n_fw == STG_WINDOWS and np.isfinite(ews).all() and (ews > 0).all()
+                and f_write == 20 * n_fw, "diffstg_facade",
+                f"{n_fw} windows, MPV {ews}, {f_write} UGnet forwards")
+        require(f_hit == 0 and r_hit["ews"] == r_write["ews"], "diffstg_facade",
+                f"cache hit: {f_hit} forwards, MPV {r_hit['ews']} vs {r_write['ews']}")
+        require(side["complete"] and side["n_windows_done"] == n_fw
+                and side["ews"] == [float(v) for v in ews], "diffstg_facade",
+                f"sidecar {side}")
+    forwards.handle.remove()
 
 
 def new_kernel_spills(build_log):
@@ -1353,6 +1697,11 @@ def main(argv=None):
                 f"K1 launched {demo_k1} times, expected {n_steps}")
         require(demo_mpv.shape == (len(slbp_w),) and np.isfinite(demo_mpv).all()
                 and (demo_mpv > 0).all(), "train_then_sweep", f"bad MPV {demo_mpv}")
+
+    # -- 14-16. DiffSTG: the cache runner, training, the facade ------------------------
+    diffstg_phases(smi_line, zero_counts,
+                   lambda: (fused_denoiser_rows.launches, fused_chain_rows.launches,
+                            fused_tmdm_rows.launches))
 
     def row(name, src, replaces, launches, err, ms, plain, bound, act=None):
         out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -49,6 +49,7 @@ from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
     fused_denoiser_rows_reference,
 )
 from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HID = 128
 M_ROWS = 777

@@ -21,6 +21,7 @@ from upgdm_tpu_torch.eval import uncertainty as U
 from upgdm_tpu_torch.models.nsdiff import NsDiffModel
 from upgdm_tpu_torch.models.tmdm import TMDMModel
 from upgdm_tpu_torch.utils import io as pio
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NODE, W, P, S = 3, 24, 12, 5
 TMDM = dict(

@@ -29,6 +29,7 @@ from upgdm_tpu_torch.ops.kernels.chain_resident import (
 )
 from upgdm_tpu_torch.ops.kernels.fused_denoiser import TILED_SHAPE, _dot, untile_b_operand
 from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HID = 128
 

@@ -21,11 +21,12 @@ from upgdm_tpu.utils import config as jcfg
 from upgdm_tpu.utils import data_prep as jprep
 from upgdm_tpu.utils import io as jio
 from upgdm_tpu_torch.cli import train_driver as drv
-from upgdm_tpu_torch.cli import train_timeseries
+from upgdm_tpu_torch.cli import train_spdata, train_timeseries
 from upgdm_tpu_torch.utils import config as cfg
 from upgdm_tpu_torch.utils import data_prep as prep
 from upgdm_tpu_torch.utils import io as pio
 from test_torch_port_train import jax_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SLBP = REPO / "demo_artifacts/slbp_data"
@@ -207,5 +208,5 @@ def test_cli_trains_on_the_card_by_default(tmp_path):
                                "--train_mode", "hold_out"])
     args = train_timeseries.parse_args([])
     assert args.train_mode == "grid" and args.device is None and not args.real
-    with pytest.raises(NotImplementedError):
-        drv.grid_search({}, {}, {}, {}, {}, tmp_path, None, spdata=True)
+    args = train_spdata.parse_args([])
+    assert args.train_mode == "grid" and args.device is None

@@ -28,6 +28,7 @@ from upgdm_tpu.ops import windows as JW
 from upgdm_tpu_torch.eval import uncertainty as P
 from upgdm_tpu_torch.models.nsdiff import NsDiffModel
 from upgdm_tpu_torch.ops import windows as PW
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 MODEL = REPO / "demo_fig1/ews_results/model_compare/NsDiff/SIS"
@@ -191,7 +192,7 @@ def test_facade_arguments_and_refusals(tmp_path):
         _call(P, tmp_path, cache_mode="read")
     with pytest.raises(ValueError, match="data_file or torch_time_series"):
         P.uncertainty_ews(model_save_file=MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="graph families"):
+    with pytest.raises(ValueError, match="graph_file"):
         _call(P, tmp_path, task_model="DiffSTG")
     assert not any(tmp_path.iterdir())  # nothing written on the way
 

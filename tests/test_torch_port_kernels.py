@@ -34,6 +34,7 @@ from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
 )
 from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
 from upgdm_tpu_torch.utils.weights import torch_state_from_flax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 20
 

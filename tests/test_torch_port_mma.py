@@ -25,6 +25,7 @@ from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
     untile_b_operand,
 )
 from upgdm_tpu_torch.ops.kernels.fused_tmdm import fused_tmdm_rows
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HID = 128
 

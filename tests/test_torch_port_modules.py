@@ -27,6 +27,7 @@ from upgdm_tpu_torch.ops import diffusion as D
 from upgdm_tpu_torch.ops.rolling import wv_sigma_trailing
 from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
 from upgdm_tpu_torch.utils.weights import flax_flat_from_torch, torch_state_from_flax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _load_flax(module: torch.nn.Module, params) -> torch.nn.Module:

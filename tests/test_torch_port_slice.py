@@ -24,6 +24,7 @@ from upgdm_tpu_torch.eval import uncertainty as U
 from upgdm_tpu_torch.models.nsdiff import NsDiffModel
 from upgdm_tpu_torch.ops.windows import sample_time_series, sliding_windows
 from upgdm_tpu_torch.utils import io as pio
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SIS_MODEL = REPO / "demo_fig1/ews_results/model_compare/NsDiff/SIS"
@@ -144,7 +145,7 @@ def test_import_pulls_in_no_jax():
         "for m in pkgutil.walk_packages(upgdm_tpu_torch.__path__, 'upgdm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'upgdm_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'networkx', 'upgdm_tpu'))\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -35,6 +35,7 @@ from upgdm_tpu_torch.ops.kernels.fused_tmdm import (
 )
 from upgdm_tpu_torch.ops.schedules import card_schedule
 from upgdm_tpu_torch.utils.weights import torch_state_from_flax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 6
 TINY = dict(
@@ -190,7 +191,7 @@ def test_state_dict_round_trip_jax_port_jax():
     with pytest.raises(RuntimeError):
         port.load_state_dict({k: v for k, v in sd.items() if k != "model.lin4.bias"})
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        diffusion_models("DiffSTG", TINY, device="cpu")
+        diffusion_models("DiffusionTS", TINY, device="cpu")
 
 
 def _jax_normals(key, S, T, shape):

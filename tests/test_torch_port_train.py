@@ -42,6 +42,7 @@ from upgdm_tpu_torch.train.loop import deterministic_cudnn, make_train_step, run
 from upgdm_tpu_torch.train.optimizers import make_lr_schedule, make_optimizer
 from upgdm_tpu_torch.utils import io as pio
 from upgdm_tpu_torch.utils.weights import flax_flat_from_torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 DEMO = REPO / "demo_artifacts"
@@ -655,8 +656,8 @@ def test_train_dtype_bfloat16(tmp_path):
     with pytest.raises(ValueError, match="train_dtype"):
         make_train_step(NsDiffModel(dict(NS, train_dtype="fp16"), device="cpu"), opt, None)
     with pytest.raises(NotImplementedError):
-        run_training(_data(4, NS), _data(4, NS), TRAIN, NS, {}, ADAM, tmp_path,
-                     adj=np.eye(2), device="cpu")
+        run_training(_data(4, NS), _data(4, NS), dict(TRAIN, dataparallel=True), NS, {}, ADAM,
+                     tmp_path, device="cpu")
 
 
 def test_bf16_sampling_after_training_uses_the_new_weights(tmp_path):

@@ -5,12 +5,13 @@ The package mirrors the JAX package module for module (``utils``, ``ops``,
 kernels under ``csrc/`` with their Python wrappers in ``ops/kernels/``.
 
 Importing the package pulls in ``torch``, ``numpy`` and ``yaml`` only — never
-``jax``, ``flax``, ``optax`` or anything of ``upgdm_tpu``.
+``jax``, ``flax``, ``optax``, ``networkx`` or anything of ``upgdm_tpu``.
 
 Entry points (``eval.uncertainty.uncertainty_ews``, ``diffusion_models``,
-``NsDiffModel``, ``TMDMModel``, ``load_model_from_dir``, ``fast_mpv_sweep``,
-``run_evaluation_cache``,
-``train.loop.run_training``, ``python -m upgdm_tpu_torch.cli.train_timeseries``)
+``NsDiffModel``, ``TMDMModel``, ``DiffSTGModel``, ``load_model_from_dir``,
+``fast_mpv_sweep``, ``run_evaluation_cache``, ``run_diffstg_evaluation_cache``,
+``train.loop.run_training``, ``python -m upgdm_tpu_torch.cli.train_timeseries``,
+``python -m upgdm_tpu_torch.cli.train_spdata``)
 run on ``"cuda"`` unless the caller passes ``device="cpu"``; with no card and
 no explicit CPU device they raise.
 """

@@ -1,14 +1,16 @@
 """Experiment orchestration of the training CLI.
 
 Counterpart of ``upgdm_tpu/cli/train_driver.py`` (reference
-main_SSLtrain_diffusion_timeseries.py): grid search over YAML list-configs,
+main_SSLtrain_diffusion_timeseries.py and main_SSLtrain_diffusion_spdata.py):
+grid search over YAML list-configs (the spdata grid with its gnn sub-grids),
 per-config seeded runs with the save_config dedup (already-trained configs
 return their saved scores), hold_out / cross_val evaluation, best-config
 selection on min(train + val), and the
 HP_analysis_result/<records>/<dataset>/hyperparameters.yaml summary. Every
-run trains on ``device`` (default the card). The spdata grid and the
-process-parallel grid search wait for the graph families and the
-multi-GPU slice.
+run trains on ``device`` (default the card). A graph dataset comes with its
+``adj_bundle`` (adjs [G, V, V], graph_ids [num] and optionally node_masks
+[G, V]); each split hands ``run_training`` the ids of its windows. The
+process-parallel grid search waits for the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -20,7 +22,10 @@ import numpy as np
 import yaml
 
 from ..train.loop import run_training
-from ..utils.config import grid_parameters_generative_learning
+from ..utils.config import (
+    grid_parameters_generative_learning,
+    grid_parameters_generative_learning_spdata,
+)
 from ..utils.io import save_config_dedup, save_record
 
 __all__ = ["hold_out_score", "cross_val_score", "grid_search", "main_from_args"]
@@ -33,17 +38,25 @@ def _split_train_val(n: int, train_size: float, seed: int = 0):
     return idx[:n_train], idx[n_train:]
 
 
+def _split_adj(adj_bundle, tr_idx, va_idx):
+    """run_training's ``adj`` of a split: (adjs, train ids, val ids[, node
+    masks]), or None for a flat dataset."""
+    if adj_bundle is None:
+        return None
+    adjs, gids, *masks = adj_bundle
+    return (adjs, gids[tr_idx], gids[va_idx], *masks)
+
+
 def hold_out_score(dataset, train_param, net_param, loss_param, optimizer_param, records_path,
                    configs_counts=0, adj_bundle=None, dataset_param=None, seed=0, device=None):
     """Hold-out evaluation (main_SSLtrain_diffusion_spdata.py:36-67)."""
-    if adj_bundle is not None:
-        raise NotImplementedError("graph datasets wait for the graph families")
     save_data_path = Path(records_path) / "hold_out"
     save_data_path.mkdir(parents=True, exist_ok=True)
     tr_idx, va_idx = _split_train_val(dataset.shape[0], train_param["traindata_size"], seed)
     return run_training(
         dataset[tr_idx], dataset[va_idx], train_param, net_param, loss_param, optimizer_param,
-        save_data_path, seed=seed, dataset_param=dataset_param, device=device,
+        save_data_path, adj=_split_adj(adj_bundle, tr_idx, va_idx), seed=seed,
+        dataset_param=dataset_param, device=device,
     )
 
 
@@ -51,8 +64,6 @@ def cross_val_score(dataset, train_param, net_param, loss_param, optimizer_param
                     configs_counts=0, adj_bundle=None, dataset_param=None, seed=0, device=None):
     """K-fold evaluation with running-average scores
     (main_SSLtrain_diffusion_spdata.py:71-130)."""
-    if adj_bundle is not None:
-        raise NotImplementedError("graph datasets wait for the graph families")
     path = Path(records_path) / "cross_val"
     path.mkdir(parents=True, exist_ok=True)
     n_splits = train_param.get("n_splits", 5)
@@ -64,8 +75,8 @@ def cross_val_score(dataset, train_param, net_param, loss_param, optimizer_param
         tr_idx = np.concatenate([folds[j] for j in range(n_splits) if j != k])
         rs = run_training(
             dataset[tr_idx], dataset[val_idx], train_param, net_param, loss_param,
-            optimizer_param, path / f"random_{k}", seed=seed + k, dataset_param=dataset_param,
-            device=device,
+            optimizer_param, path / f"random_{k}", adj=_split_adj(adj_bundle, tr_idx, val_idx),
+            seed=seed + k, dataset_param=dataset_param, device=device,
         )
         ts, vs = np.asarray(rs["train_scores"]), np.asarray(rs["val_scores"])
         if average["train_scores"] is None:
@@ -112,8 +123,8 @@ def grid_search(dataset_params: dict, train_params: dict, net_params: dict, loss
     build_dataset(dataset_param) -> (dataset_array, adj_bundle_or_None,
     feature_count).
     """
-    if spdata:
-        raise NotImplementedError("the spdata grid waits for the graph families")
+    expand = (grid_parameters_generative_learning_spdata if spdata
+              else grid_parameters_generative_learning)
     records_path = Path(records_path)
     hparams_path = Path(hp_analysis_root) / records_path.name
     hparams_path.mkdir(parents=True, exist_ok=True)
@@ -121,8 +132,8 @@ def grid_search(dataset_params: dict, train_params: dict, net_params: dict, loss
     for values in it.product(*dataset_params.values()):
         dataset_param = dict(zip(dataset_params.keys(), values))
         dataset, adj_bundle, nf = build_dataset(dataset_param)
-        parameters_list, hp_grid = grid_parameters_generative_learning(
-            train_params, net_params, loss_params, optimizer_params)
+        parameters_list, hp_grid = expand(train_params, net_params, loss_params,
+                                          optimizer_params)
         rel = "dataset_{}_w{}p{}st{}".format(
             str(dataset_param.get("filter", "*")).replace("*", ""),
             dataset_param["windows"], dataset_param["pred_len"], dataset_param["sampling_t"],
@@ -173,8 +184,6 @@ def main_from_args(args, build_dataset: Callable, spdata: bool, device=None):
             grid_search(cfg["dataset"], cfg["train"], cfg["net"], cfg["loss"], cfg["optimizer"],
                         records_path, build_dataset, spdata=spdata, device=device)
         return
-    if spdata:
-        raise NotImplementedError("spdata training waits for the graph families")
     # single-config modes take the FIRST value of every list
     single = {
         sec: {k: (v[0] if isinstance(v, list) else v) for k, v in cfg[sec].items()}

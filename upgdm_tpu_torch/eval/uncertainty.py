@@ -19,8 +19,9 @@ Each sweep batches ``chunk_windows`` windows per call (flattened with the
 node rows into the batch axis), pads the last chunk to the same shape, and
 is double-buffered: chunk i+1 is enqueued on the device before chunk i's
 results are read back. MPV is taken in raw space, after the inverse scaler.
-``run_diffstg_evaluation_cache`` (the facade's DiffSTG branch) and the SLBP
-analyses are not ported yet.
+DiffSTG sweeps one window (one graph) at a time through
+``run_diffstg_evaluation_cache``, with the same ``.partial`` checkpoints and
+sidecars. The SLBP analyses are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ import numpy as np
 import torch
 
 from ..models.factory import diffusion_models
+from ..ops.graph import graphml_to_adjacency
 from ..ops.windows import (
     DEFAULT_SAMPLE_WINDOW_STEP,
     DEFAULT_SAMPLING_T,
+    NETWORK_DYNAMICS,
     dynamic_name,
     infer_sample_window_step_from_cache,
     normalize_time_series,
@@ -64,6 +67,7 @@ __all__ = [
     "default_sample_window_step",
     "summarize_pred_future_list",
     "summarize_nsdiff_g_list",
+    "normalize_diffstg_pred_future_list",
     "load_dynamic_data",
     "load_model_from_dir",
     "batched_window_ensemble",
@@ -71,6 +75,7 @@ __all__ = [
     "batched_gx",
     "bounded_chunk_windows",
     "run_evaluation_cache",
+    "run_diffstg_evaluation_cache",
     "resume_mpv_sweep",
     "run_nsdiff_g_cache",
 ]
@@ -297,6 +302,22 @@ def summarize_nsdiff_g_list(g_list, pred_dim=0):
         ews_list.append(gx.mean(axis=1)[:, pred_dim].mean())
         pred_mean_list.append(gx.mean())
     return pred_mean_list, ews_list
+
+
+def normalize_diffstg_pred_future_list(pred_future_list):
+    """Insert the F axis into legacy [Node, pred_len, samples] caches (ref :354-366)."""
+    out = []
+    for pf in pred_future_list:
+        pf = np.asarray(pf)
+        if pf.ndim == 3:
+            pf = pf[:, :, None, :]
+        if pf.ndim != 4:
+            raise ValueError(
+                "DiffSTG pred_future must have shape [Node, pred_len, F, samples] "
+                f"or legacy [Node, pred_len, samples], got {pf.shape}"
+            )
+        out.append(pf)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -618,6 +639,49 @@ def resume_mpv_sweep(model, windows_array, pred_len, cache_path, sidecar, n,
     return pred_mean, ews
 
 
+def run_diffstg_evaluation_cache(
+    model, windows_array, pred_len, graph, cache_path, device=None,
+    force_recompute=False, max_windows=None, checkpoint_every=32,
+    sample_window_step=None,
+):
+    """Per-window DiffSTG sweep -> `.pt` ensemble cache of [Node, pred_len,
+    F, S] per window, each window scaled and sampled on ``graph`` (a
+    ``DenseGraph``), with the mid-sweep checkpoints of
+    :func:`run_evaluation_cache` (atomic ``<cache>.partial`` with its
+    fingerprint and ``.mpv.json`` sidecar every ``checkpoint_every``
+    windows, resumed on a rerun, cleared once the cache lands)."""
+    cache_path = Path(cache_path)
+    if cache_path.exists() and not force_recompute:
+        return normalize_diffstg_pred_future_list(uio.load_tensor_list(cache_path))
+    _check_device(model, device)
+    adj = torch.as_tensor(np.asarray(graph.adj, np.float32), device=model.device)
+    windows = windows_array[:max_windows] if max_windows is not None else windows_array
+    n = len(windows)
+    partial_path = cache_path.with_name(cache_path.name + ".partial")
+    fingerprint = _sweep_fingerprint(windows, pred_len, n)
+    out: List[np.ndarray] = []
+    if partial_path.exists() and not force_recompute:
+        out = _load_partial(partial_path, fingerprint, n)
+    every = max(int(checkpoint_every), 1)
+    for i in range(len(out), n):  # [Node, W, F] per window
+        x = windows[i]
+        if model.scaler is not None:
+            x = model.scaler_transform(x)
+        pred_future, _ = model.evaluation_step({"x": np.asarray(x, np.float32), "adj": adj})
+        # C order, as the cache stores it: numpy's sums run in another order
+        # over a strided array, and the MPV of a cache hit must equal this one
+        out.append(pred_future[:, -pred_len:, :, :].contiguous().cpu().numpy())
+        if len(out) % every == 0 and len(out) < n:
+            _flush_partial(partial_path, out, fingerprint, n)
+            pm, ews = summarize_pred_future_list(out, model=model)
+            _save_mpv_sidecar(cache_path, fingerprint=fingerprint, n_total=n,
+                              sample_window_step=sample_window_step,
+                              pred_mean=pm, ews=ews, complete=False)
+    uio.save_tensor_list(out, cache_path)
+    _clear_partial(partial_path)
+    return out
+
+
 def run_nsdiff_g_cache(
     model, windows_array, cache_path, device=None, pred_dim=0, force_recompute=False,
     max_windows=None,
@@ -678,8 +742,17 @@ def uncertainty_ews(
     cache_mode="write",
 ):
     """Per-window early-warning signal (MPV) of a trajectory under a trained
-    model: the JAX package's entry point, for NsDiff (and its variants) and
-    TMDM. ``device=None`` is the card.
+    model: the JAX package's entry point, for NsDiff (and its variants), TMDM
+    and DiffSTG. ``device=None`` is the card.
+
+    DiffSTG needs ``graph_file`` (a ``.graphml``) and network dynamics
+    (SIS, neuronal, biomass), and always sweeps through the `.pt` cache
+    (``run_diffstg_evaluation_cache``), whatever ``cache_mode``. Without
+    ``infer_params`` it loads the checkpoint with the JAX package's default
+    ``{"parallel_sampling": 10, "sequential_sampling": 1, "n_z_samples": 10,
+    "diffusion_steps": 20}``, which overrides the trained
+    ``diffusion_steps`` too (the schedule is rebuilt over 20 steps), as in
+    the JAX package.
 
     ``uncertainty_method``: "sampling" (the ensemble's MPV), "gx" (NsDiff's
     g(x) pathway) or "both", with the JAX package's aliases.
@@ -723,10 +796,6 @@ def uncertainty_ews(
         method_config = read_model_config(model_save_file)
     if task_model is None and method_config is not None:
         task_model = method_config.get("net", {}).get("task_model")
-    if task_model == "DiffSTG":
-        raise NotImplementedError("DiffSTG's branch of uncertainty_ews waits for the graph "
-                                  "families slice of the port")
-
     dataset_config = method_config.get("dataset", {}) if method_config else {}
     windows = dataset_config.get("windows")
     pred_len = dataset_config.get("pred_len")
@@ -745,6 +814,8 @@ def uncertainty_ews(
     cached_pred = None
     if need_sampling and cache_mode == "write" and cache_path.exists() and not force_recompute:
         cached_pred = uio.load_tensor_list(cache_path)
+        if task_model == "DiffSTG":
+            cached_pred = normalize_diffstg_pred_future_list(cached_pred)
     cached_g = None
     if need_gx and nsdiff_path.exists() and not force_recompute:
         cached_g = uio.load_tensor_list(nsdiff_path)
@@ -819,6 +890,28 @@ def uncertainty_ews(
             pred_mean_list = [float(v) for v in sidecar["pred_mean"]]
             uncertainty_ews_list = [float(v) for v in sidecar["ews"]]
             mpv_from_sidecar = True
+        elif task_model == "DiffSTG":
+            if dynamic_type not in NETWORK_DYNAMICS:
+                raise ValueError("DiffSTG only supports network dynamics: SIS, neuronal, biomass.")
+            if graph_file is None:
+                raise ValueError("graph_file is required for DiffSTG.")
+            if cached_pred is not None:
+                pred_future_list = cached_pred
+                if model_save_file is not None and load_model_when_cached:
+                    _load_model()
+            elif model_save_file is None:
+                raise ValueError("model_save_file is required when cache_path does not exist "
+                                 "or force_recompute=True.")
+            else:
+                if infer_params is None:  # the JAX package's default, steps included
+                    infer_params = {"parallel_sampling": 10, "sequential_sampling": 1,
+                                    "n_z_samples": 10, "diffusion_steps": 20}
+                _load_model()
+                graph = graphml_to_adjacency(_resolve_project_path(graph_file))
+                pred_future_list = run_diffstg_evaluation_cache(
+                    model, windows_array, pred_len, graph, cache_path, device=device,
+                    force_recompute=force_recompute, max_windows=max_windows,
+                    sample_window_step=sample_window_step)
         elif cached_pred is not None:
             pred_future_list = cached_pred
             if model_save_file is not None and load_model_when_cached:

@@ -29,7 +29,17 @@ from ..utils.weights import SCALER_KEYS, flax_flat_from_torch, torch_state_from_
 
 EPS = 10e-8  # 1e-7, the reference's epsilon
 
-__all__ = ["EPS", "DiffusionWrapperBase"]
+__all__ = ["EPS", "DiffusionWrapperBase", "flax_truncated_normal_"]
+
+
+@torch.no_grad()
+def flax_truncated_normal_(w: torch.Tensor, fan_in: int, scale: float) -> None:
+    """flax's variance-scaling initialiser in place: a normal truncated at two
+    standard deviations with variance ``scale / fan_in`` (lecun-normal at
+    scale 1, he-normal at 2)."""
+    # the standard normal truncated to (-2, 2) has std .8796...
+    nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0)
+    w.mul_(math.sqrt(scale / fan_in) / 0.87962566103423978)
 
 
 class _LossCall(nn.Module):
@@ -192,21 +202,16 @@ class DiffusionWrapperBase:
         deviations; biases zero; LayerNorm scale one. The gate tables of
         ``ConditionalLinear`` keep their own U(0, 1)."""
 
-        def truncated(w, fan_in, scale):
-            # the standard normal truncated to (-2, 2) has std .8796...
-            nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0)
-            w.mul_(math.sqrt(scale / fan_in) / 0.87962566103423978)
-
         for name, m in module.named_modules():
             if isinstance(m, nn.Linear):
-                truncated(m.weight, m.in_features, 1.0)
+                flax_truncated_normal_(m.weight, m.in_features, 1.0)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.Conv1d):
-                truncated(m.weight, m.in_channels * m.kernel_size[0], 2.0)
+                flax_truncated_normal_(m.weight, m.in_channels * m.kernel_size[0], 2.0)
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         for name, prm in module.named_parameters():
             if name.endswith("series_conv_kernel"):  # [1, S, k]: fan_in S * k
-                truncated(prm, prm.shape[1] * prm.shape[2], 2.0)
+                flax_truncated_normal_(prm, prm.shape[1] * prm.shape[2], 2.0)

@@ -1,10 +1,11 @@
-"""Token + positional embedding of the NS-Transformer.
+"""Token + positional embedding of the NS-Transformer, and the diffusion
+timestep embedding of DiffSTG's UGnet.
 
-Counterpart of ``DataEmbedding`` in ``upgdm_tpu/models/embedding.py``: a
-circular Conv1d (k=3, no bias) over time plus the fixed sin/cos position
-table, then dropout (active only when a generator is passed). The table is
-float32 and, as the JAX package's constant, promotes a bf16 token embedding
-to float32.
+Counterpart of ``DataEmbedding`` and ``sinusoidal_time_embedding`` in
+``upgdm_tpu/models/embedding.py``: a circular Conv1d (k=3, no bias) over
+time plus the fixed sin/cos position table, then dropout (active only when
+a generator is passed). The table is float32 and, as the JAX package's
+constant, promotes a bf16 token embedding to float32.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from torch import nn
 from .dropout import Dropout
 from .layers import Conv1d
 
-__all__ = ["positional_encoding_table", "CircularConv1d", "TokenEmbedding", "DataEmbedding"]
+__all__ = ["positional_encoding_table", "sinusoidal_time_embedding", "CircularConv1d",
+           "TokenEmbedding", "DataEmbedding"]
 
 
 def positional_encoding_table(max_len: int, d_model: int) -> np.ndarray:
@@ -29,6 +31,20 @@ def positional_encoding_table(max_len: int, d_model: int) -> np.ndarray:
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term)[:, : pe[:, 1::2].shape[1]]
     return pe
+
+
+def sinusoidal_time_embedding(t: torch.Tensor, embedding_dim: int) -> torch.Tensor:
+    """Diffusion-timestep embedding [B] -> [B, embedding_dim] float32
+    (DiffSTG/ugnet.py:15-33). t is taken in float32 whatever its type: a
+    bf16 t misrounds timesteps above 256."""
+    half_dim = embedding_dim // 2
+    emb = math.log(10000.0) / (half_dim - 1)
+    emb = torch.exp(torch.arange(half_dim, dtype=torch.float32, device=t.device) * -emb)
+    emb = t.to(torch.float32)[:, None] * emb[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
 
 
 class CircularConv1d(nn.Module):

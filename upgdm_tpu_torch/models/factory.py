@@ -1,8 +1,8 @@
 """Model factory — string dispatch over the ported diffusion families.
 
 Counterpart of ``upgdm_tpu/models/factory.py``. NsDiff (with its ablation
-variants) and TMDM are ported; every other family raises until its slice
-lands.
+variants), TMDM and DiffSTG are ported; every other family raises until its
+slice lands.
 """
 from __future__ import annotations
 
@@ -21,6 +21,10 @@ def diffusion_models(task_model: str, net_param: dict, **kwargs):
         from .tmdm import TMDMModel
 
         return TMDMModel(net_param=net_param, seed=seed, device=device)
+    if task_model == "DiffSTG":
+        from .diffstg import DiffSTGModel
+
+        return DiffSTGModel(net_param=net_param, seed=seed, device=device)
     if task_model == "NsDiff":
         from .nsdiff import NsDiffModel
 

@@ -1,9 +1,10 @@
-"""NsDiff and CARD (TMDM) diffusion math: the forward (training) terms and
-the reverse chains.
+"""NsDiff, CARD (TMDM) and DiffSTG diffusion math: the forward (training)
+terms and the reverse chains.
 
-Counterpart of the NsDiff and TMDM/CARD sections of
-``upgdm_tpu/ops/diffusion.py`` (nsdiff_utils.py:40-158,163-239,271-284 and
-tmdm_diffusion_utils.py:42-119 of the reference). A reverse chain is a
+Counterpart of the NsDiff, TMDM/CARD and DiffSTG sections of
+``upgdm_tpu/ops/diffusion.py`` (nsdiff_utils.py:40-158,163-239,271-284,
+tmdm_diffusion_utils.py:42-119 and graph_diffusion_model.py:46-73 of the
+reference). A reverse chain is a
 Python loop over t; the denoiser is injected as ``model_fn(y, t)`` so the
 same loop runs the plain module on the CPU and the fused kernel on the card.
 
@@ -33,6 +34,8 @@ __all__ = [
     "nsdiff_p_sample_loop",
     "card_q_sample",
     "card_p_sample_loop",
+    "diffstg_q_sample",
+    "diffstg_posterior_step",
     "schedule_on",
 ]
 
@@ -274,3 +277,40 @@ def card_p_sample_loop(
         y = y_mean + float(sqrt_beta_hat[t]) * draw(i + 1)
     # final step t=0 -> y_0 (deterministic reparameterisation)
     return reparam(y, model_fn(y, 0), 0)
+
+
+# ---------------------------------------------------------------------------
+# DiffSTG — DDPM forward + DDPM/DDIM posterior on the 1-indexed schedule
+# ---------------------------------------------------------------------------
+
+def diffstg_q_sample(x0, sched, t, noise):
+    """xt = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps (diffusion_schedulers.py:70-80);
+    t (1-indexed into the length-(T+1) alphabar) is a scalar or one step per
+    leading row."""
+    t = torch.as_tensor(t, dtype=torch.long, device=x0.device)
+    atbar = torch.as_tensor(sched.alphabar, dtype=x0.dtype, device=x0.device)[t]
+    atbar = atbar.reshape(atbar.shape + (1,) * (x0.ndim - atbar.ndim))
+    return torch.sqrt(atbar) * x0 + torch.sqrt(1.0 - atbar) * noise
+
+
+def diffstg_posterior_step(sched, xt, pred_eps, t: int, target_t: int, trick: str,
+                           generator: Optional[torch.Generator] = None, z=None):
+    """One denoise step with static (t, target_t) ints (gaussian_posterior,
+    graph_diffusion_model.py:46-73); the coefficients are Python floats, as
+    the reference's host ``.item()`` scalars. ``z`` (the DDPM draw) is a
+    test seam."""
+    alphabar = sched.alphabar
+    atbar = float(alphabar[t])
+    atbar_target = float(alphabar[target_t])
+    if trick == "ddpm" or t <= 1:
+        at = float(sched.alpha[t])
+        atbar_prev = float(alphabar[t - 1])
+        beta_tilde = float(sched.beta[t - 1]) * (1.0 - atbar_prev) / (1.0 - atbar)
+        if z is None:
+            z = torch.randn(xt.shape, generator=generator, dtype=xt.dtype, device=xt.device)
+        xt_target = (1.0 / at ** 0.5) * (xt - ((1.0 - at) / (1.0 - atbar) ** 0.5) * pred_eps)
+        return xt_target + beta_tilde ** 0.5 * z
+    if trick == "ddim":
+        xt_target = (atbar_target / atbar) ** 0.5 * (xt - (1.0 - atbar) ** 0.5 * pred_eps)
+        return xt_target + (1.0 - atbar_target) ** 0.5 * pred_eps
+    raise ValueError(f"Unknown inference trick {trick!r}")

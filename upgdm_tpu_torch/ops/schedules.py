@@ -1,6 +1,6 @@
-"""NsDiff and CARD (TMDM) noise schedules (numpy, host side).
+"""NsDiff, CARD (TMDM) and DiffSTG noise schedules (numpy, host side).
 
-Counterpart of the NsDiff and CARD parts of ``upgdm_tpu/ops/schedules.py``:
+Counterpart of the NsDiff, CARD and DiffSTG parts of ``upgdm_tpu/ops/schedules.py``:
 the same float64 construction, stored as float32, so every array equals the
 JAX package's bit for bit. A schedule is static per configuration; the
 samplers gather per-step scalars from it.
@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 
 __all__ = ["make_beta_schedule", "nsdiff_cumulants", "NsDiffSchedule", "CardSchedule",
-           "card_schedule"]
+           "card_schedule", "DiffSTGSchedule", "diffstg_schedule", "inference_time_pairs"]
 
 
 def make_beta_schedule(
@@ -199,3 +199,69 @@ def card_schedule(
         alphas_cumprod_prev=f32(acp_prev),
         posterior_variance=f32(posterior_variance),
     )
+
+
+# ---------------------------------------------------------------------------
+# DiffSTG schedule (diffusion_schedulers.py:39-125)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DiffSTGSchedule:
+    """The reference's 1-indexed convention: ``alpha`` has length T+1 with
+    alpha[0] = 1 and ``alphabar[t]`` = prod_{i<=t} alpha[i]; ``beta`` has
+    length T (diffusion_schedulers.py:62-64). Timesteps t run in 1..T. The
+    arrays stay float64: the sampler folds its coefficients from them."""
+
+    beta: np.ndarray  # [T]
+    alpha: np.ndarray  # [T+1], alpha[0] = 1
+    alphabar: np.ndarray  # [T+1]
+    T: int
+
+    def snr(self, t: np.ndarray) -> np.ndarray:
+        atbar = self.alphabar[t]
+        return atbar / (1.0 - atbar)
+
+
+def diffstg_schedule(T: int, schedule: str = "quad") -> DiffSTGSchedule:
+    if schedule == "linear":
+        beta = np.linspace(1e-4, 2e-2, T)
+    elif schedule == "quad":
+        # the reference's quad endpoint is bT**5 (diffusion_schedulers.py:55),
+        # which it trains with: kept
+        beta = np.linspace(1e-4 ** 0.5, (2e-2) ** 5, T) ** 2
+    elif schedule == "cosine":
+        offset = 0.008
+
+        def cos_noise(t):
+            return np.cos(math.pi * 0.5 * (t / T + offset) / (1 + offset)) ** 2
+
+        alphabar = cos_noise(np.arange(0, T + 1, 1)) / cos_noise(0)
+        beta = np.clip(1 - (alphabar[1:] / alphabar[:-1]), None, 0.999)
+    else:
+        raise ValueError(f"unknown DiffSTG schedule {schedule!r}")
+    alpha = np.concatenate([[1.0], 1.0 - beta])
+    alphabar = np.cumprod(alpha)
+    return DiffSTGSchedule(
+        beta=np.asarray(beta, np.float64),
+        alpha=np.asarray(alpha, np.float64),
+        alphabar=np.asarray(alphabar, np.float64),
+        T=T,
+    )
+
+
+def inference_time_pairs(inference_schedule: str, T: int, inference_T: int):
+    """DiffSTG's reduced-step (t1, t2) pairs (diffusion_schedulers.py:99-125)."""
+    pairs = []
+    for i in range(inference_T):
+        if inference_schedule == "linear":
+            t1 = T - int((float(i) / inference_T) * T)
+            t2 = T - int((float(i + 1) / inference_T) * T)
+        elif inference_schedule == "cosine":
+            t1 = T - int(np.sin((float(i) / inference_T) * np.pi / 2) * T)
+            t2 = T - int(np.sin((float(i + 1) / inference_T) * np.pi / 2) * T)
+        else:
+            raise ValueError(f"unknown inference schedule {inference_schedule!r}")
+        t1 = int(np.clip(t1, 1, T))
+        t2 = int(np.clip(t2, 0, T - 1))
+        pairs.append((t1, t2))
+    return pairs

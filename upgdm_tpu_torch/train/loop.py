@@ -21,8 +21,16 @@ The step runs eagerly with autograd on the model's device. With
 ``net_param["train_dtype"]="bfloat16"`` (opt-in, as in the JAX package) the
 loss runs on bf16 copies of every float32 parameter and of the batch and is
 cast back to float32 (``cast_loss``, the JAX package's semantics): the
-gradients, the master weights and Adam stay float32. Graph batches (``adj``)
-and data parallelism raise until their slices land.
+gradients, the master weights and Adam stay float32. Data parallelism raises
+until its slice lands.
+
+Graph models (DiffSTG) train on [num, V, T, F] windows with ``adj``: one
+adjacency [V, V] for every window, or the mixed-topology tuple
+``(adjs [G, V, V], train_graph_ids, val_graph_ids)``, gathered per batch,
+optionally with a fourth element ``node_masks [G, V]`` that is gathered the
+same way and reaches the loss, so padded nodes do not count. The JAX
+package's loop passes no node mask (its loss then averages over the padded
+nodes too); with the 3-tuple the port does the same.
 
 A run is deterministic given its seed on the card too, as the JAX package's
 is: ``run_training`` holds cuDNN to its deterministic algorithms while it
@@ -54,7 +62,10 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[st
     ``lr_at(n)`` gives the learning rate of the update after ``n`` applied
     ones; the count lives in the optimizer's first parameter group
     (``applied_updates``), so it is saved and resumed with its state. A
-    NaN loss skips the update and leaves the count."""
+    NaN loss skips the update and leaves the count. Keywords of
+    ``step(batch, **kw)`` go to the loss (a graph batch's ``adj`` and
+    ``node_mask``); with bf16 training their float32 tensors are cast too, as
+    the JAX package casts every float32 argument of its loss."""
     train_dt = str(model.net_param.get("train_dtype", "float32"))
     if train_dt not in ("float32", "bfloat16", "bf16"):
         raise ValueError(f"train_dtype={train_dt!r}: expected 'float32' or 'bfloat16'")
@@ -62,16 +73,18 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[st
     group = optimizer.param_groups[0]
     group.setdefault("applied_updates", 0)
 
-    def step(batch) -> float:
+    def step(batch, **kw) -> float:
         if lr_at is not None:
             lr = lr_at(group["applied_updates"])
             for g in optimizer.param_groups:
                 g["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
         if bf16:
-            loss = model.cast_loss(batch, torch.bfloat16, select=select, train=True)
+            kw = {k: v.to(torch.bfloat16) if torch.is_tensor(v) and v.dtype == torch.float32
+                  else v for k, v in kw.items()}
+            loss = model.cast_loss(batch, torch.bfloat16, select=select, train=True, **kw)
         else:
-            loss = model.loss_fn(batch, select=select, train=True)
+            loss = model.loss_fn(batch, select=select, train=True, **kw)
         loss.backward()
         value = loss.item()
         if math.isfinite(value):
@@ -104,10 +117,11 @@ def _batches(n, batch_size, shuffle, rng):
 def run_training(trainset, validationset, train_param: dict, net_param: dict,
                  loss_param: dict, optimizer_param: dict, records_path, adj=None,
                  seed: int = 0, model=None, dataset_param: Optional[dict] = None, device=None):
-    """Train one configuration on stacked windows [num, T, F]; returns
-    record_scores. The model is built from ``net_param`` on ``device``
-    (default the card) unless one is given. One seed gives the same records
-    on the same device (``deterministic_cudnn``)."""
+    """Train one configuration on stacked windows ([num, T, F], or
+    [num, V, T, F] for a graph model with ``adj``); returns record_scores.
+    The model is built from ``net_param`` on ``device`` (default the card)
+    unless one is given. One seed gives the same records on the same device
+    (``deterministic_cudnn``)."""
     with deterministic_cudnn():
         return _run_training(trainset, validationset, train_param, net_param, loss_param,
                              optimizer_param, records_path, adj, seed, model, dataset_param,
@@ -116,8 +130,6 @@ def run_training(trainset, validationset, train_param: dict, net_param: dict,
 
 def _run_training(trainset, validationset, train_param, net_param, loss_param,
                   optimizer_param, records_path, adj, seed, model, dataset_param, device):
-    if adj is not None:
-        raise NotImplementedError("graph batches (adj) wait for the graph families")
     if train_param.get("dataparallel") or train_param.get("dataparallel_set"):
         raise NotImplementedError("data-parallel training waits for the multi-GPU slice")
     records_path = Path(records_path)
@@ -153,6 +165,27 @@ def _run_training(trainset, validationset, train_param, net_param, loss_param,
         model, optimizer, select_for_loss,
         None if epoch_sched is None else lambda n: epoch_sched(n // steps_per_epoch))
 
+    adjs = node_masks = train_gids = val_gids = None
+    if isinstance(adj, tuple):
+        adjs, train_gids, val_gids, *rest = adj
+        adjs = np.asarray(adjs, np.float32)
+        node_masks = np.asarray(rest[0], bool) if rest else None
+    elif adj is not None:
+        adj = torch.as_tensor(np.asarray(adj, np.float32), device=model.device)
+
+    def graph_of(idx, gids):
+        """The loss's graph keywords of a batch: its adjacencies (and node
+        masks), or none for a flat model."""
+        if adjs is not None:
+            g = np.asarray(gids)[idx]
+            kw = {"adj": torch.as_tensor(adjs[g], device=model.device)}
+            if node_masks is not None:
+                kw["node_mask"] = torch.as_tensor(node_masks[g], device=model.device)
+            return kw
+        if adj is not None:
+            return {"adj": adj.expand(len(idx), *adj.shape)}
+        return {}
+
     def batch_of(data, idx):
         batch = data[idx]
         if model.scaler == "StandardScaler":
@@ -165,7 +198,7 @@ def _run_training(trainset, validationset, train_param, net_param, loss_param,
         for epoch in range(init_epoch, train_param["train_epochs"]):
             train_score, n, loss = 0.0, 0, 0.0
             for idx in _batches(trainset.shape[0], train_param["train_batch_size"], True, np_rng):
-                loss = train_step(batch_of(trainset, idx))
+                loss = train_step(batch_of(trainset, idx), **graph_of(idx, train_gids))
                 if np.isnan(loss):
                     continue
                 train_score = n * train_score / (n + 1) + loss / (n + 1)
@@ -181,7 +214,7 @@ def _run_training(trainset, validationset, train_param, net_param, loss_param,
                                                       train_param["val_batch_size"], False,
                                                       np_rng)):
                         lv = model.loss_fn(batch_of(validationset, idx), select=select_for_loss,
-                                           train=False).item()
+                                           train=False, **graph_of(idx, val_gids)).item()
                         if np.isnan(lv):
                             raise ValueError("loss is None")
                         val_score = m_ * val_score / (m_ + 1) + lv / (m_ + 1)

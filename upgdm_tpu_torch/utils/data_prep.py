@@ -1,19 +1,21 @@
 """Dataset preparation for the flat time-series models: file discovery,
 decimation, windowing, flip augmentation.
 
-Counterpart of the time-series half of ``upgdm_tpu/utils/data_prep.py``
-(reference utils/utils.py:371-494): windows come out as one stacked
-[num, windows + pred_len, F] float32 numpy array. ``pre_dataset_spdata``
-(graph corpora) waits for the graph families.
+Counterpart of ``upgdm_tpu/utils/data_prep.py`` (reference
+utils/utils.py:310-494): flat windows come out as one stacked
+[num, windows + pred_len, F] float32 numpy array; graph corpora
+(``pre_dataset_spdata``) as [num, V, windows + pred_len, 1] with the padded
+adjacencies and the graph of each window.
 """
 from __future__ import annotations
 
 from glob import glob
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
+from ..ops.graph import graphml_to_adjacency
 from .io import load_pt
 
 __all__ = [
@@ -21,6 +23,7 @@ __all__ = [
     "flip_augment",
     "pre_dataset_timeseries",
     "pre_dataset_timeseries_real",
+    "pre_dataset_spdata",
 ]
 
 
@@ -112,3 +115,54 @@ def pre_dataset_timeseries_real(file_path, windows: int, pred_len: int, interval
         wins = _windows_of(file, windows, pred_len, interval_step, interval, STG_exist)
         out.extend(_kept(wins, data_dropout, rng))
     return _stacked(out, windows, pred_len)
+
+
+def pre_dataset_spdata(spdata_file_path, graph_file_path, windows: int, pred_len: int,
+                       interval_step: int, sampling_t: float, filter: str = "*",
+                       return_node_mask: bool = False, **_) -> Tuple[np.ndarray, ...]:
+    """Graph dataset -> (x [num, V, L, 1], adjs [G, V, V], graph_ids [num])
+    and, with ``return_node_mask``, node_masks [G, V] bool.
+
+    Mirrors pre_DataSet_spdata (utils/utils.py:310-370): each trajectory
+    directory <spdata_file_path>/<name> pairs with
+    <graph_file_path>/<name>.graphml; its records hold ys_dynamic [T, Node].
+    Every graph is padded to the largest node count (padded nodes have zero
+    adjacency rows and zero features, and False in the mask); every window is
+    emitted flipped, then original (:371-375). A non-finite record raises:
+    a diverged simulation would otherwise poison a whole batch.
+    """
+    dirs = [d for d in sorted(glob(str(Path(spdata_file_path) / filter))) if Path(d).is_dir()]
+    interval = _decimation_interval(sampling_t)
+    L = windows + pred_len
+
+    graphs, windows_per_graph = [], []
+    for d in dirs:
+        graph = graphml_to_adjacency(Path(graph_file_path) / f"{Path(d).name}.graphml")
+        wins_for_graph = []
+        for spdata_file in sorted(glob(str(Path(d) / "*.pt"))):
+            series = np.asarray(load_pt(spdata_file)["ys_dynamic"], np.float32).T[:, :, None]
+            if not np.isfinite(series).all():
+                raise ValueError(f"non-finite ys_dynamic in {spdata_file}: regenerate the "
+                                 "record (divergence-guarded simulate_network_system)")
+            wins = unfold_windows(series[:, ::interval, :], L, interval_step, axis=1)
+            for w in wins.transpose(1, 0, 2, 3):  # [n, V, L, 1]
+                wins_for_graph.extend([np.flip(w, axis=1).copy(), w])
+        graphs.append(graph)
+        windows_per_graph.append(wins_for_graph)
+
+    if not graphs:
+        out = (np.zeros((0, 0, L, 1), np.float32), np.zeros((0, 0, 0), np.float32),
+               np.zeros((0,), np.int32))
+        return out + (np.zeros((0, 0), bool),) if return_node_mask else out
+    vmax = max(g.num_nodes for g in graphs)
+    padded = [g.padded(vmax) for g in graphs]
+    xs, gids = [], []
+    for gi, wins in enumerate(windows_per_graph):
+        for w in wins:
+            if w.shape[0] < vmax:
+                w = np.concatenate([w, np.zeros((vmax - w.shape[0],) + w.shape[1:], w.dtype)])
+            xs.append(w)
+            gids.append(gi)
+    out = (np.stack(xs).astype(np.float32), np.stack([g.adj for g in padded]),
+           np.asarray(gids, np.int32))
+    return out + (np.stack([g.node_mask for g in padded]),) if return_node_mask else out

@@ -9,8 +9,12 @@ rename plus a transpose:
   - Dense ``kernel [in, out]``        -> ``weight [out, in]``
   - Conv  ``kernel [k, in, out]``     -> ``weight [out, in, k]``
   - Projector ``series_conv_kernel [k, S, 1]`` -> ``[1, S, k]`` (same name)
-  - LayerNorm ``scale``               -> ``weight`` (no transpose)
-  - ``bias`` and ``ConditionalLinear.embed [n_steps, 128]`` unchanged
+  - LayerNorm ``scale``               -> ``weight`` (no transpose); a
+    LayerNorm is flax's ``LayerNorm_<n>`` or UGnet's ``norm``
+  - ``bias``, ``ConditionalLinear.embed [n_steps, 128]``, the GAT vectors
+    ``att_src``/``att_dst``/``att`` [H, C] and UGnet's
+    ``out_time_kernel [T, 2T]``/``out_time_bias`` unchanged (not Dense
+    kernels: no transpose)
 
 ``scaler_mean``/``scaler_std`` ride along untouched. Any other leaf name is
 an error in both directions, so a key set that does not belong to the port
@@ -26,7 +30,13 @@ import torch
 __all__ = ["torch_state_from_flax", "flax_flat_from_torch", "SCALER_KEYS"]
 
 SCALER_KEYS = ("scaler_mean", "scaler_std")
-_PLAIN_LEAVES = ("bias", "embed")
+_PLAIN_LEAVES = ("bias", "embed", "att_src", "att_dst", "att", "out_time_kernel",
+                 "out_time_bias")
+
+
+def _is_layer_norm(parent: str) -> bool:
+    name = parent.rpartition(".")[2]
+    return name.startswith("LayerNorm") or name == "norm"
 
 
 def _transpose_kernel(a: np.ndarray) -> np.ndarray:
@@ -70,7 +80,7 @@ def flax_flat_from_torch(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray
             continue
         parent, _, leaf = key.rpartition(".")
         if leaf == "weight":
-            if parent.rpartition(".")[2].startswith("LayerNorm"):
+            if _is_layer_norm(parent):
                 out[f"{parent}.scale"] = a.copy()
             else:
                 out[f"{parent}.kernel"] = _transpose_kernel(a)
