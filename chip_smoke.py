@@ -40,7 +40,15 @@ CPU's, bf16 against float32 MPV), the card's loss and gradients against the
 CPU's, the train step, training through the ``adj`` path on a seeded corpus
 of the tracked 30- and 50-node graphs with the checkpoint swept, and the
 DiffSTG branch of ``uncertainty_ews`` (written, a cache hit, the sidecar).
-Every phase that fails exits non-zero. Progress goes to
+Then NsDiff_spatial at the spdata grid's width over the same windows one
+graph at a time (timed, one window profiled, card against CPU per sample,
+bf16 against float32 MPV), each stage's step, the card's loss and gradients
+against the CPU's, and its three stages trained and swept; and DiffusionTS at
+the model-comparison width through ``uncertainty_ews`` (written, a cache hit;
+forwards and Langevin gradients counted), a profiled round at 32 rows with
+its peak memory, the card against the CPU on every forward of a chain, bf16
+against float32 MPV, and its train step. Neither family has a hand-written
+kernel on its path. Every phase that fails exits non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
 last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
 kernel phases (build, K1, K2, K3 with their times): the short loop for work on
@@ -124,6 +132,43 @@ STG_WINDOWS, STG_STEP, STG_TRAIN_B = 16, 50, 16
 # (tests/test_torch_parity.py) and bf16 against float32 sampling
 # (tests/test_models_e2e.py:171)
 STG_RTOL, STG_ATOL, STG_MPV_REL = 2e-4, 2e-5, 0.01
+
+# NsDiff_spatial at the spdata grid's width
+# (configs/grid_search/diffusion_model_NsDiff_spdata.yaml): GCNConv with self
+# loops in f and the denoiser, d_model 64 e2/d1, d_ff 128, d_h 4, [1, 2], 2
+# blocks, fT_h = Td_h = 10, W/P 100/100, 20 steps, n_z 100; swept one graph
+# at a time (examples/n100_scale_demo.py:108-127) over the DiffSTG windows,
+# trained at the grid's batch of 16 graphs
+SP_PARAM = dict(
+    dataset_nf=1, windows=WINDOWS, pred_len=PRED_LEN, rolling_length=50, diffusion_steps=STEPS,
+    diffusion_schedule="linear", beta_start=1e-4, beta_end=2e-2, scaler_type="StandardScaler",
+    d_model=64, n_heads=4, e_layers=2, d_layers=1, d_ff=128, dropout=0.05, activation="gelu",
+    p_hidden_dims=[64, 64], p_hidden_layers=2, spatial_layers=1, fT_h=10, d_h=4, Td_h=10,
+    channel_multipliers=[1, 2], n_blocks=2, gnn_name="GCNConv",
+    gnn_param={"add_self_loops": True}, f_gnn_name="GCNConv",
+    f_gnn_param={"add_self_loops": True}, n_z_samples=N_Z, parallel_sample=10,
+    task_model="NsDiff_spatial",
+)
+SP_TRAIN_B = 16
+SP_BOUNDED = 100.0  # largest |sample| of a chain that stays bounded (scaled units)
+
+# DiffusionTS at the published model-comparison width
+# (demo_zoo/ews_results/model_compare/DiffusionTS/SIS/model_trained.yaml): d_model 64,
+# enc 3 / dec 6, 4 heads, mlp x 4, W/P 100/100, 100 timesteps, 100 DDIM steps,
+# eta 0, n_z 100 in rounds of 10, trained at its batch of 256; the facade over
+# DTS_WINDOWS windows of a seeded SIS record on the tracked 30-node graph
+DTS_PARAM = dict(
+    dataset_nf=1, windows=WINDOWS, pred_len=PRED_LEN, timesteps=100, diffusion_steps=100,
+    beta_schedule="cosine", n_layer_enc=3, n_layer_dec=6, d_model=64, n_heads=4,
+    mlp_hidden_times=4, attn_pd=0.0, resid_pd=0.0, eta=0.0, infill_coef=0.1,
+    infill_learning_rate=0.05, loss_type="l2", use_ff=True, n_z_samples=N_Z,
+    parallel_sample=10, scaler_type="StandardScaler", task_model="DiffusionTS",
+)
+DTS_WINDOWS, DTS_TRAIN_B, DTS_ROWS = 2, 256, 32
+# the port's module bar (tests/test_torch_port_dts.py: atol 1e-5 of the output's
+# scale) on every forward; bf16 against float32 MPV at the JAX package's own
+# DiffusionTS bar (tests/test_models_e2e.py:174-210: the chain is chaotic)
+DTS_FWD_REL, DTS_MPV_REL = 1e-5, 0.05
 
 
 def emit(**kw):
@@ -744,6 +789,12 @@ def stg_trajectory(n_nodes, T, seed=0):
     return (0.3 + walk + np.linspace(0.0, 0.4, T)[None]).astype(np.float32)
 
 
+def real_nodes(bundle):
+    """The node count of each graph of a padded (adjs, graph_ids) bundle:
+    the nodes with an edge (every node of the tracked BA graphs has one)."""
+    return [int(n) for n in (bundle[0].sum(axis=2) > 0).sum(axis=1)]
+
+
 def write_stg_corpus(root):
     """A seeded spdata directory on the tracked 30- and 50-node BA graphs:
     <root>/spdata/<g>/rec.pt (ys_dynamic [T, V]) with <root>/graphs/<g>.graphml."""
@@ -763,21 +814,31 @@ def write_stg_corpus(root):
                  "tp_values": np.zeros(len(ys), np.float32)}, root / "spdata" / name / "rec.pt")
 
 
-class UGnetForwards:
-    """Counts UGnet forwards of every model (a global forward pre-hook)."""
+class Forwards:
+    """Counts the forwards of every module of class ``cls`` (a global forward
+    pre-hook); ``remove()`` takes the hook out."""
 
-    def __init__(self):
+    def __init__(self, cls):
         import torch
-
-        from upgdm_tpu_torch.models.ugnet import UGnet
 
         self.n = 0
 
         def hook(module, args):
-            if isinstance(module, UGnet):
+            if isinstance(module, cls):
                 self.n += 1
 
         self.handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+
+    def remove(self):
+        self.handle.remove()
+
+
+def ugnet_forwards():
+    """A counter of the graph U-Net forwards (DiffSTG's UGnet and
+    NsDiff_spatial's denoiser)."""
+    from upgdm_tpu_torch.models.ugnet import GraphUNet
+
+    return Forwards(GraphUNet)
 
 
 def idle_share(fn, top=8):
@@ -893,7 +954,7 @@ def diffstg_phases(smi_line, zero_counts, kernel_counts):
     from upgdm_tpu_torch.ops.graph import graphml_to_adjacency
     from upgdm_tpu_torch.utils.io import save_checkpoint, save_config_yaml, save_pt
 
-    forwards = UGnetForwards()
+    forwards = ugnet_forwards()
     graph = graphml_to_adjacency(STG_GRAPHS[0])
     V = graph.num_nodes
     traj = stg_trajectory(V, WINDOWS + (STG_WINDOWS - 1) * STG_STEP)  # STG_WINDOWS windows
@@ -988,7 +1049,7 @@ def diffstg_phases(smi_line, zero_counts, kernel_counts):
         tmpv = np.asarray(tmpv)
         emit(phase="diffstg_train", card=smi_line, card_vs_cpu={"loss_rel": rel,
                                                               "worst_grad_err_over_bar": worst},
-             windows=len(x), nodes=int(x.shape[1]), real_nodes=bundle[2].sum(axis=1).tolist(),
+             windows=len(x), nodes=int(x.shape[1]), real_nodes=real_nodes(bundle),
              batch=STG_TRAIN_B, step_ms=step_ms, step_profiled=step_profile, steps=n_steps,
              seconds=t_train, train_scores=rs["train_scores"],
              val_scores=rs["val_scores"], kernel_launches=kernel_counts(),
@@ -996,8 +1057,8 @@ def diffstg_phases(smi_line, zero_counts, kernel_counts):
                     "mpv": tmpv.tolist()})
         require(np.isfinite(rs["train_scores"]).all() and np.isfinite(rs["val_scores"]).all()
                 and len(rs["train_scores"]) == 2, "diffstg_train", f"records {rs}")
-        require(x.shape[1] == 50 and sorted(bundle[2].sum(axis=1).tolist()) == [30, 50],
-                "diffstg_train", f"padding: {x.shape}, masks {bundle[2].sum(axis=1)}")
+        require(x.shape[1] == 50 and sorted(real_nodes(bundle)) == [30, 50],
+                "diffstg_train", f"padding: {x.shape}, real nodes {real_nodes(bundle)}")
         require(forwards.n == 2 * steps and np.isfinite(tmpv).all() and (tmpv > 0).all(),
                 "diffstg_train", f"swept checkpoint: {forwards.n} forwards, MPV {tmpv}")
 
@@ -1045,7 +1106,339 @@ def diffstg_phases(smi_line, zero_counts, kernel_counts):
         require(side["complete"] and side["n_windows_done"] == n_fw
                 and side["ews"] == [float(v) for v in ews], "diffstg_facade",
                 f"sidecar {side}")
-    forwards.handle.remove()
+    forwards.remove()
+
+def nsdiff_spatial_phase(smi_line, zero_counts, kernel_counts):
+    """NsDiff_spatial on the card (``nsdiff_spatial``): the per-graph sweep
+    through ``run_diffstg_evaluation_cache`` at the grid's width (timed, one
+    window profiled), the card's float32 ensemble per sample against the
+    CPU's on the same normals, bf16 against float32 MPV on the same draws;
+    then the three stages through ``cli.train_spdata``'s dataset and
+    ``hold_out_score`` (pretrain_f -> pretrain_g -> NsDiff_model with
+    ``load_pretrain``), the step timed at the grid's batch, the card's loss
+    and gradients against the CPU's, and the trained checkpoint swept. No
+    hand-written kernel is on this path (the JAX package's chain drives a
+    UGnet in plain XLA): ``kernel_counts()`` stays zero."""
+    import numpy as np
+    import torch
+
+    from upgdm_tpu_torch.cli.train_driver import hold_out_score
+    from upgdm_tpu_torch.cli.train_spdata import build_dataset
+    from upgdm_tpu_torch.eval.uncertainty import (
+        load_model_from_dir, run_diffstg_evaluation_cache, summarize_pred_future_list,
+    )
+    from upgdm_tpu_torch.models.nsdiff_spatial import NsDiffSpatialModel
+    from upgdm_tpu_torch.ops.graph import graphml_to_adjacency
+    from upgdm_tpu_torch.train.loop import deterministic_cudnn
+
+    forwards = ugnet_forwards()
+    graph = graphml_to_adjacency(STG_GRAPHS[0])
+    V = graph.num_nodes
+    traj = stg_trajectory(V, WINDOWS + (STG_WINDOWS - 1) * STG_STEP)
+    idx = (np.arange(STG_WINDOWS) * STG_STEP)[:, None] + np.arange(WINDOWS)[None]
+    wins = np.ascontiguousarray(traj[:, idx].transpose(1, 0, 2))[..., None]  # [n, V, W, 1]
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        model = NsDiffSpatialModel(SP_PARAM, seed=0, device="cuda")
+        model.scaler_fit(wins.reshape(-1, WINDOWS, 1))  # per feature, as run_training
+        run_diffstg_evaluation_cache(model, wins[:1], PRED_LEN, graph, tmp / "warm.pt",
+                                     device="cuda")
+        zero_counts()
+        forwards.n = 0
+        t_sweep, ens = host_s(lambda: run_diffstg_evaluation_cache(
+            model, wins, PRED_LEN, graph, tmp / "sweep.pt", device="cuda"))
+        n_fwd, launched = forwards.n, kernel_counts()
+        mpv = np.asarray(summarize_pred_future_list(ens, model=model)[1])
+        hist = np.asarray(model.scaler_transform(wins[0]), np.float32)
+        profiled = idle_share(lambda: model.evaluation_step({"x": hist, "adj": graph.adj}))
+        # The checks need a chain that stays bounded: with random weights at this
+        # width about half the draws give a chain that diverges (to 1e6-1e10 in
+        # both packages' arithmetic; the card equals the CPU there at the MPV
+        # level), where bf16 against float32 is chaos, not precision. They take
+        # the first seed whose float32 chain stays within SP_BOUNDED.
+        f32 = dict(SP_PARAM, sampling_dtype="float32")
+        screened = {}
+        for seed in range(8):
+            card32 = NsDiffSpatialModel(f32, seed=seed, device="cuda")
+            top = card32.sample_fn(hist[None], graph.adj, torch.Generator(device="cuda")
+                                   .manual_seed(0), n_z_samples=8).abs().max().item()
+            screened[seed] = top
+            if top <= SP_BOUNDED:
+                break
+        require(top <= SP_BOUNDED, "nsdiff_spatial", f"no seed with a bounded chain: {screened}")
+        # card against CPU, float32 on both, the same weights and normals: 2 samples
+        cpu32 = NsDiffSpatialModel(f32, seed=seed, device="cpu")
+        noise = [rng.normal(size=(2, 1, V, PRED_LEN, 1)).astype(np.float32)
+                 for _ in range(STEPS)]
+        e_card = card32.sample_fn(hist[None], graph.adj, n_z_samples=2, noise=noise)
+        e_cpu = cpu32.sample_fn(hist[None], graph.adj, n_z_samples=2, noise=noise)
+        card_cpu = stg_off_by(e_card.cpu().numpy(), e_cpu.numpy(), STG_RTOL, STG_ATOL)
+        # bf16 (the default) against float32 on the card, the same draws
+        draws = lambda: torch.Generator(device="cuda").manual_seed(5)
+        m32 = card32.sample_fn(hist[None], graph.adj, draws()).var(dim=-1).mean().item()
+        card32.net_param["sampling_dtype"] = "bfloat16"
+        m16 = card32.sample_fn(hist[None], graph.adj, draws()).var(dim=-1).mean().item()
+        bf16_rel = abs(m16 / m32 - 1.0)
+        del card32, cpu32
+        emit(phase="nsdiff_spatial", card=smi_line, windows=STG_WINDOWS, nodes=V, samples=N_Z,
+             steps=STEPS, seconds=t_sweep, windows_per_hr=STG_WINDOWS / t_sweep * 3600.0,
+             denoiser_forwards_per_window=n_fwd / STG_WINDOWS, kernel_launches=launched,
+             mpv=mpv.tolist(), window_profiled=profiled, card_vs_cpu_float32_off_bar=card_cpu,
+             bf16_vs_float32_mpv_rel=bf16_rel, mpv_float32=m32, checked_seed=seed,
+             screened_max_abs=screened,
+             bars={"rtol": STG_RTOL, "atol": STG_ATOL, "mpv_rel": STG_MPV_REL})
+        require(n_fwd == STEPS * STG_WINDOWS and not any(launched), "nsdiff_spatial",
+                f"{n_fwd} denoiser forwards for {STG_WINDOWS} windows, kernels {launched}")
+        require(mpv.shape == (STG_WINDOWS,) and np.isfinite(mpv).all() and (mpv > 0).all(),
+                "nsdiff_spatial", f"bad MPV {mpv}")
+        require(card_cpu <= 0, "nsdiff_spatial", f"card off the CPU by {card_cpu} over the bar")
+        require(bf16_rel <= STG_MPV_REL, "nsdiff_spatial",
+                f"bf16 MPV {bf16_rel:.4%} off float32")
+
+        # -- the three stages, the step, card against CPU, the swept checkpoint ------
+        seams = dict(adj=torch.as_tensor(np.stack([graph.adj] * 4)),
+                     t=torch.tensor([0, 7, 12, 19]),
+                     noise=torch.as_tensor(rng.normal(size=(4, V, PRED_LEN, 1)),
+                                           dtype=torch.float32))
+        batch = torch.as_tensor(rng.normal(size=(4, V, WINDOWS + PRED_LEN, 1)),
+                                dtype=torch.float32)
+        try:
+            rel, worst = card_vs_cpu(NsDiffSpatialModel(SP_PARAM, seed=1, device="cuda"),
+                                     NsDiffSpatialModel, SP_PARAM, batch, seams)
+        except AssertionError as exc:
+            fail("nsdiff_spatial_train", str(exc))
+        step_model = NsDiffSpatialModel(SP_PARAM, seed=2, device="cuda")
+        b16 = torch.as_tensor(rng.normal(size=(SP_TRAIN_B, V, WINDOWS + PRED_LEN, 1)),
+                              dtype=torch.float32, device="cuda")
+        a16 = torch.as_tensor(np.stack([graph.adj] * SP_TRAIN_B), device="cuda")
+        with deterministic_cudnn():
+            step_ms = {s: train_step_ms(step_model, s, b16, "float32", adj=a16)[0]
+                       for s in ("pretrain_f", "pretrain_g", None)}
+        write_stg_corpus(tmp / "corpus")
+        dataset_param = dict(spdata_file_path=str(tmp / "corpus/spdata"),
+                             graph_file_path=str(tmp / "corpus/graphs"), filter="*",
+                             sampling_t=0.1, windows=WINDOWS, pred_len=PRED_LEN,
+                             interval_step=STG_STEP)
+        x, bundle, _ = build_dataset(dataset_param)
+        train_param = dict(train_batch_size=SP_TRAIN_B, val_batch_size=SP_TRAIN_B,
+                           train_epochs=1, test_set=True, ckpt=False, traindata_size=0.75,
+                           model_evaluation="hold_out")
+        opt = dict(optimizer_name="Adam", lr=1e-3, weight_decay=1e-5, scheduler_set=False)
+        stages, net = {}, dict(SP_PARAM)
+        zero_counts()
+        for select in ("pretrain_f", "pretrain_g", "NsDiff_model"):
+            if select == "NsDiff_model":
+                net.update(load_pretrain=True, load_pretrain_f=True,
+                           pretrain_f_path=str(tmp / "sp/pretrain_f/hold_out/trained_model"),
+                           pretrain_g_path=str(tmp / "sp/pretrain_g/hold_out/trained_model"))
+            t_stage, rs = host_s(lambda: hold_out_score(
+                x, dict(train_param, train_model_select=select), dict(net),
+                {"loss_metric": "KL divergence"}, opt, tmp / "sp" / select, adj_bundle=bundle,
+                dataset_param=dataset_param, device="cuda"))
+            stages[select] = {"seconds": t_stage, "train_scores": rs["train_scores"],
+                              "val_scores": rs["val_scores"]}
+            require(np.isfinite(rs["train_scores"]).all() and np.isfinite(rs["val_scores"]).all(),
+                    "nsdiff_spatial_train", f"{select} records {rs}")
+        trained, _ = load_model_from_dir(tmp / "sp/NsDiff_model/hold_out/trained_model",
+                                         device="cuda")
+        forwards.n = 0
+        t_tsweep, tens = host_s(lambda: run_diffstg_evaluation_cache(
+            trained, wins[:2], PRED_LEN, graph, tmp / "trained.pt", device="cuda"))
+        tmpv = np.asarray(summarize_pred_future_list(tens, model=trained)[1])
+        emit(phase="nsdiff_spatial_train", card=smi_line,
+             card_vs_cpu={"loss_rel": rel, "worst_grad_err_over_bar": worst},
+             batch=SP_TRAIN_B, step_ms={k or "NsDiff_model": v for k, v in step_ms.items()},
+             windows=len(x), nodes=int(x.shape[1]), real_nodes=real_nodes(bundle),
+             stages=stages, kernel_launches=kernel_counts(),
+             swept={"windows": 2, "seconds": t_tsweep, "denoiser_forwards": forwards.n,
+                    "mpv": tmpv.tolist()})
+        require(forwards.n == 2 * STEPS and np.isfinite(tmpv).all() and (tmpv > 0).all(),
+                "nsdiff_spatial_train",
+                f"swept checkpoint: {forwards.n} forwards, MPV {tmpv}")
+    forwards.remove()
+
+
+class GradCalls:
+    """Counts ``torch.autograd.grad`` calls (the Langevin corrector's
+    gradients) while it is installed; ``remove()`` restores the function."""
+
+    def __init__(self):
+        import torch
+
+        self.n, self._orig = 0, torch.autograd.grad
+
+        def counting(*a, **kw):
+            self.n += 1
+            return self._orig(*a, **kw)
+
+        torch.autograd.grad = counting
+
+    def remove(self):
+        import torch
+
+        torch.autograd.grad = self._orig
+
+
+def diffusionts_phase(smi_line, zero_counts, kernel_counts):
+    """DiffusionTS on the card (``diffusionts``): ``uncertainty_ews`` on a
+    seeded SIS record over the 30-node graph, written then hit (0 forwards),
+    with the forwards and Langevin gradients a window counted; one sampling
+    round at ``eval_rows_per_call`` rows (its peak memory) and one profiled;
+    the card's float32 ensemble per sample against the CPU's with the
+    corrector off (the same normals, the DFT-matmul route on both); bf16
+    against float32 MPV on the same draws; the train step at the yaml's
+    batch and the card's loss and gradients against the CPU's. No
+    hand-written kernel is on this path (plain XLA in the JAX package)."""
+    import numpy as np
+    import torch
+
+    from upgdm_tpu_torch.eval.uncertainty import uncertainty_ews
+    from upgdm_tpu_torch.models.diffusionts import DiffusionTSModel
+    from upgdm_tpu_torch.models.diffusionts_net import DTSTransformer, FourierLayer
+    from upgdm_tpu_torch.ops.graph import graphml_to_adjacency
+    from upgdm_tpu_torch.utils.io import save_checkpoint, save_config_yaml, save_pt
+
+    V = graphml_to_adjacency(STG_GRAPHS[0]).num_nodes
+    traj = stg_trajectory(V, WINDOWS + (DTS_WINDOWS + 1) * STG_STEP, seed=4)
+    rng = np.random.default_rng(4)
+    model = DiffusionTSModel(DTS_PARAM, seed=0, device="cuda")
+    model.scaler_fit(traj.reshape(-1, 1))
+    _, rows = model.ddim_step_table()
+    per_round = {"forwards": len(rows) + 1, "grads": sum(r[4] for r in rows)}
+    per_round["forwards"] += per_round["grads"]
+    rounds = -(-model.n_z_samples // model.parallel_sample)
+    forwards, grads = Forwards(DTSTransformer), GradCalls()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            model_dir = tmp / "model"
+            save_checkpoint(model_dir, "model_trained", model.state_dict(), DTS_PARAM)
+            save_config_yaml(model_dir / "model_trained.yaml", {
+                "dataset": {"windows": WINDOWS, "pred_len": PRED_LEN, "sampling_t": 0.1},
+                "train": {"train_model_select": None}, "net": DTS_PARAM})
+            data_file = tmp / "SIS_dynamic_increase.pt"
+            save_pt({"ys_dynamic": traj.T.copy(),
+                     "ts_dynamic": np.arange(traj.shape[1], dtype=np.float32) * 0.1,
+                     "tp_values": np.zeros(traj.shape[1], np.float32)}, data_file)
+            (tmp / "facade").mkdir()
+
+            def facade():
+                forwards.n = grads.n = 0
+                zero_counts()
+                t, r = host_s(lambda: uncertainty_ews(
+                    model_save_file=model_dir, data_file=data_file, dynamic_type="SIS",
+                    cache_path=tmp / "facade", device="cuda", cache_mode="write",
+                    max_windows=DTS_WINDOWS))
+                return t, r, forwards.n, grads.n, kernel_counts()
+
+            t_write, r_write, f_write, g_write, l_write = facade()
+            t_hit, r_hit, f_hit, g_hit, l_hit = facade()
+            ews = np.asarray(r_write["ews"])
+            n_fw = len(ews)
+
+            # one round at eval_rows_per_call rows under the profiler, with its
+            # peak memory
+            rows32 = torch.as_tensor(rng.normal(size=(DTS_ROWS, WINDOWS, 1)),
+                                     dtype=torch.float32, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            profiled = idle_share(lambda: model.sample_fn(rows32,
+                                                          n_z_samples=model.parallel_sample))
+            peak = torch.cuda.max_memory_allocated()
+
+            # card against CPU, float32, corrector off, 2 rows x 2 draws: every
+            # forward of the CPU's chain fed to the card's transformer on the same
+            # state and timestep (the DFT-matmul route on both), at the module bar.
+            # The whole chains are compared too, for the record only: a top-k
+            # selection of the FourierLayer that a last-bit difference flips, or
+            # the +-1 clamp, sends a sample elsewhere (the JAX package calls the
+            # chain chaotic, tests/test_models_e2e.py:178-183)
+            f32 = dict(DTS_PARAM, sampling_dtype="float32", infill_learning_rate=0.0)
+            card32 = DiffusionTSModel(f32, seed=0, device="cuda")
+            cpu32 = DiffusionTSModel(f32, seed=0, device="cpu")
+            for m in cpu32.net.modules():  # the card's route on the CPU too
+                if isinstance(m, FourierLayer):
+                    m.use_dft_matmul = True
+            T = WINDOWS + PRED_LEN
+            hist = rows32[:2].cpu().numpy()
+            noise = (rng.normal(size=(2, 2, T, 1)).astype(np.float32),
+                     rng.normal(size=(len(rows), 2, 2, T, 1)).astype(np.float32),
+                     rng.normal(size=(len(rows), 2, 2, T, 1)).astype(np.float32))
+            calls, plain_output = [], cpu32._output
+
+            def recorded(net, x, t, gen=None):
+                y = plain_output(net, x, t, gen)
+                calls.append((x, t, y))
+                return y
+
+            cpu32._output = recorded
+            e_cpu = cpu32.sample_fn(hist, n_z_samples=2, noise=noise).numpy()
+            fwd_rel = []
+            with torch.no_grad():
+                for x, t, y in calls:
+                    yc = card32._output(card32.net["model"], x.to("cuda"), t.to("cuda")).cpu()
+                    fwd_rel.append(((yc - y).abs().max() / y.abs().max()).item())
+            e_card = card32.sample_fn(hist, n_z_samples=2, noise=noise).cpu().numpy()
+            chain_within = float((np.abs(e_card - e_cpu)
+                                  <= STG_ATOL + STG_RTOL * np.abs(e_cpu)).mean())
+            # bf16 (the default) against float32, corrector on, 8 rows x 100 draws
+            # in one call each, the same draws
+            rows8 = torch.as_tensor(model.scaler_transform(traj[:8, :WINDOWS, None]),
+                                    dtype=torch.float32, device="cuda")
+            mpvs = {}
+            for dt in ("float32", "bfloat16"):
+                model.net_param.update(sampling_dtype=dt, sample_chunk=N_Z)
+                gen = torch.Generator(device="cuda").manual_seed(11)
+                mpvs[dt] = model.sample_fn(rows8, gen, N_Z).var(dim=-1).mean().item()
+            del model.net_param["sample_chunk"]
+            bf16_rel = abs(mpvs["bfloat16"] / mpvs["float32"] - 1.0)
+
+            # the train step at the yaml's batch; card against CPU on 4 rows
+            tb = torch.as_tensor(rng.normal(size=(DTS_TRAIN_B, T, 1)), dtype=torch.float32,
+                                 device="cuda")
+            step_ms, losses = train_step_ms(DiffusionTSModel(DTS_PARAM, seed=1, device="cuda"),
+                                            None, tb, "float32")
+            n_t = DTS_PARAM["timesteps"]
+            seams = dict(t=torch.tensor([0, n_t // 3, 2 * n_t // 3, n_t - 1]),
+                         noise=torch.as_tensor(rng.normal(size=(4, T, 1)), dtype=torch.float32))
+            try:
+                rel, worst = card_vs_cpu(DiffusionTSModel(DTS_PARAM, seed=1, device="cuda"),
+                                         DiffusionTSModel, DTS_PARAM, tb[:4].cpu(), seams)
+            except AssertionError as exc:
+                fail("diffusionts", str(exc))
+    finally:
+        forwards.remove()
+        grads.remove()
+    emit(phase="diffusionts", card=smi_line, windows=n_fw, nodes=V, samples=N_Z,
+         ddim_steps=len(rows) + 1, seconds_write=t_write, windows_per_hr=n_fw / t_write * 3600.0,
+         seconds_cache_hit=t_hit, forwards_per_window=f_write / max(n_fw, 1),
+         langevin_grads_per_window=g_write / max(n_fw, 1), expected_per_round=per_round,
+         rounds_per_window=rounds, forwards_cache_hit=f_hit,
+         kernel_launches={"write": l_write, "cache_hit": l_hit}, mpv=ews.tolist(),
+         round_rows=DTS_ROWS, peak_bytes_round=peak,
+         peak_bytes_over_base=peak - base, round_profiled=profiled,
+         card_vs_cpu_forwards={"forwards": len(fwd_rel), "worst_rel": max(fwd_rel),
+                               "over_bar": sum(r > DTS_FWD_REL for r in fwd_rel)},
+         card_vs_cpu_chain_within_bar=chain_within, bf16_vs_float32_mpv_rel=bf16_rel,
+         mpv_dtypes=mpvs,
+         train_batch=DTS_TRAIN_B, step_ms=step_ms,
+         card_vs_cpu={"loss_rel": rel, "worst_grad_err_over_bar": worst},
+         bars={"forward_rel": DTS_FWD_REL, "rtol": STG_RTOL, "atol": STG_ATOL,
+               "mpv_rel": DTS_MPV_REL})
+    require(n_fw == DTS_WINDOWS and np.isfinite(ews).all() and (ews > 0).all()
+            and f_write == n_fw * rounds * per_round["forwards"]
+            and g_write == n_fw * rounds * per_round["grads"] and not any(l_write),
+            "diffusionts", f"{n_fw} windows, MPV {ews}, {f_write} forwards, {g_write} grads")
+    require(f_hit == 0 and g_hit == 0 and r_hit["ews"] == r_write["ews"], "diffusionts",
+            f"cache hit: {f_hit} forwards, MPV {r_hit['ews']} vs {r_write['ews']}")
+    require(len(fwd_rel) == len(rows) + 1, "diffusionts",
+            f"{len(fwd_rel)} forwards in a chain of {len(rows) + 1} steps, corrector off")
+    require(max(fwd_rel) <= DTS_FWD_REL, "diffusionts",
+            f"card off the CPU on a forward by {max(fwd_rel)} of its scale")
+    require(bf16_rel <= DTS_MPV_REL, "diffusionts", f"bf16 MPV {bf16_rel:.4%} off float32")
+    require(np.isfinite(losses).all(), "diffusionts", f"step losses {losses}")
 
 
 def new_kernel_spills(build_log):
@@ -1699,9 +2092,13 @@ def main(argv=None):
                 and (demo_mpv > 0).all(), "train_then_sweep", f"bad MPV {demo_mpv}")
 
     # -- 14-16. DiffSTG: the cache runner, training, the facade ------------------------
-    diffstg_phases(smi_line, zero_counts,
-                   lambda: (fused_denoiser_rows.launches, fused_chain_rows.launches,
-                            fused_tmdm_rows.launches))
+    kernel_counts = lambda: (fused_denoiser_rows.launches, fused_chain_rows.launches,
+                             fused_tmdm_rows.launches)
+    diffstg_phases(smi_line, zero_counts, kernel_counts)
+
+    # -- 17-18. NsDiff_spatial and DiffusionTS ----------------------------------------
+    nsdiff_spatial_phase(smi_line, zero_counts, kernel_counts)
+    diffusionts_phase(smi_line, zero_counts, kernel_counts)
 
     def row(name, src, replaces, launches, err, ms, plain, bound, act=None):
         out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,

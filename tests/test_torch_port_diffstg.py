@@ -20,6 +20,7 @@ import pytest
 import torch
 import yaml
 
+from upgdm_tpu.cli import train_spdata as jax_train_spdata
 from upgdm_tpu.eval import uncertainty as JU
 from upgdm_tpu.models.diffstg import DiffSTGModel as JDiffSTG
 from upgdm_tpu.utils import io as jio
@@ -220,44 +221,66 @@ ADAM = dict(optimizer_name="Adam", lr=1e-3, weight_decay=1e-5)
 
 
 def test_run_training_adj_paths(tmp_path):
-    """One adjacency, the mixed-topology tuple, and the tuple with node
-    masks, whose gathered masks reach the loss (the padded nodes of the
-    smaller graph out of it); bf16 training casts the adjacency with the
-    batch. Records finite, a checkpoint with the yaml."""
-    rng = np.random.default_rng(1)
-    Vp, n = V + 2, 12
-    x = (rng.normal(size=(n, Vp, 16, 1)) * 0.1).cumsum(axis=2).astype(np.float32)
-    adjs = np.stack([_graph(rng, V, 2), _graph(rng, Vp)])
-    gids = rng.integers(0, 2, size=n).astype(np.int32)
-    x[gids == 0, V:] = 0.0
-    masks = np.ones((2, Vp), bool)
-    masks[0, V:] = False
+    """The spdata CLI's bundle is the JAX package's ``(adjs, graph_ids)``,
+    and the loop hands DiffSTG's loss the batch's adjacencies and no node
+    mask: on a padded batch of that corpus the loss the loop takes equals
+    JAX's (unmasked) loss on the same draws, rtol 1e-5. One adjacency for
+    every window goes through too, and bf16 training casts the adjacency
+    with the batch. Records finite, a checkpoint with the yaml."""
+    _write_spdata(tmp_path, np.random.default_rng(1))
+    dataset_param = dict(spdata_file_path=str(tmp_path / "spdata"),
+                         graph_file_path=str(tmp_path / "graphs"), filter="*",
+                         sampling_t=0.1, windows=8, pred_len=8, interval_step=40)
+    x, bundle, nf = train_spdata.build_dataset(dataset_param)
+    jx, jbundle, jnf = jax_train_spdata.build_dataset(dataset_param)
+    assert nf == jnf == 1 and len(bundle) == len(jbundle) == 2
+    for got, want in zip((x,) + bundle, (jx,) + jbundle):
+        np.testing.assert_array_equal(got, want)
+    adjs, gids = bundle
+    Vp, n = adjs.shape[1], len(x)
+    assert Vp == V + 2 and not x[gids == 0][:, V:].any()  # the 6-node graph, padded
     net = dict(NET, scaler_type="StandardScaler")
     seen = []
     orig = DiffSTGModel.loss_fn
 
-    def spy(self, batch, adj, node_mask=None, **kw):
-        seen.append((tuple(adj.shape), None if node_mask is None else node_mask.cpu().numpy()))
-        return orig(self, batch, adj, node_mask=node_mask, **kw)
+    def spy(self, batch, adj, **kw):
+        seen.append((batch.clone(), adj.clone(), sorted(kw)))
+        return orig(self, batch, adj, **kw)
 
+    tr, va = np.arange(n - 4), np.arange(n - 4, n)
     with mock.patch.object(DiffSTGModel, "loss_fn", spy):
-        for i, adj in enumerate((adjs[1], (adjs, gids[:8], gids[8:]),
-                                 (adjs, gids[:8], gids[8:], masks))):
+        for i, adj in enumerate((adjs[1], (adjs, gids[tr], gids[va]))):
             seen.clear()
-            rs = run_training(x[:8], x[8:], TRAIN, net, {}, ADAM, tmp_path / str(i), adj=adj,
+            rs = run_training(x[tr], x[va], TRAIN, net, {}, ADAM, tmp_path / str(i), adj=adj,
                               device="cpu")
             assert np.isfinite(rs["train_scores"]).all() and len(rs["val_scores"]) == 2
-            assert all(s[0] == (4, Vp, Vp) for s in seen)
-            assert all((m is None) == (i < 2) for _, m in seen)
-        # the last run's masks: one row per window, its graph's
-        assert any((m[:, V:] == 0).any() for _, m in seen)
-        rs = run_training(x[:8], x[8:], TRAIN, dict(net, train_dtype="bfloat16"), {}, ADAM,
-                          tmp_path / "bf16", adj=(adjs, gids[:8], gids[8:], masks),
-                          device="cpu")
+            assert all(a.shape == (len(b), Vp, Vp) for b, a, _ in seen)
+            assert all("node_mask" not in kw for _, _, kw in seen)
+        rs = run_training(x[tr], x[va], TRAIN, dict(net, train_dtype="bfloat16"), {}, ADAM,
+                          tmp_path / "bf16", adj=(adjs, gids[tr], gids[va]), device="cpu")
     assert np.isfinite(rs["train_scores"]).all()
-    cfg = yaml.safe_load((tmp_path / "2/trained_model/model_trained.yaml").read_text())
+    # a batch of the mixed run that holds a padded window: JAX's loss on it
+    batch, adj = next((b, a) for b, a, _ in seen if (a[:, V:].sum(dim=(1, 2)) == 0).any())
+    batch, adj = batch.numpy(), adj.numpy()
+    port = DiffSTGModel(net, seed=1, device="cpu")
+    jm = jax_model(net, _weights(port))
+    B = len(batch)
+    key = jax.random.key(3)
+    loss = jax.jit(lambda p, m: jm.loss_fn(p, batch, adj, key, node_mask=m, train=False))
+    want = float(loss(jm.params, None))
+    _, km, kt, ke = jax.random.split(key, 4)
+    got = port.loss_fn(batch, adj, train=False,
+                       mask_draw=np.asarray(jax.random.uniform(km, (B, Vp, 8, 1))),
+                       t=np.asarray(jax.random.randint(kt, (B,), 1, 51)),
+                       noise=np.asarray(jax.random.normal(ke, batch.shape))).item()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    # the padded nodes count: JAX's masked loss is another number
+    real = np.ones((B, Vp), bool)
+    real[adj[:, V:].sum(axis=(1, 2)) == 0, V:] = False
+    assert abs(float(loss(jm.params, real)) - want) > 1e-6 * abs(want)
+    cfg = yaml.safe_load((tmp_path / "1/trained_model/model_trained.yaml").read_text())
     assert cfg["net"]["task_model"] == "DiffSTG"
-    net_param, sd = pio.load_checkpoint(tmp_path / "2/trained_model/model_trained")
+    net_param, sd = pio.load_checkpoint(tmp_path / "1/trained_model/model_trained")
     assert "scaler_mean" in sd and "model.out_time_kernel" in sd
 
 

@@ -137,7 +137,7 @@ def _write_corpus(root, names_nodes, T=300, seed=0, nan=False):
 def test_pre_dataset_spdata_bit_for_bit_on_tracked_graphs(tmp_path):
     """A seeded record directory on the tracked 30- and 50-node BA graphs:
     windows (flipped, then original), padded adjacencies and graph ids equal
-    to the JAX package's; the node masks mark the real nodes."""
+    to the JAX package's; the smaller graph's padded nodes are empty."""
     srcs = [("ba30", REPO / "dataset/train_dataset_graph/barabasi_albert_30_0.graphml"),
             ("ba50", REPO / "dataset/train_dataset_graph/barabasi_albert_50_0.graphml")]
     _write_corpus(tmp_path, srcs)
@@ -145,12 +145,14 @@ def test_pre_dataset_spdata_bit_for_bit_on_tracked_graphs(tmp_path):
               windows=16, pred_len=8, interval_step=40, sampling_t=0.2)
     want = jprep.pre_dataset_spdata(**kw)
     got = data_prep.pre_dataset_spdata(**kw)
+    assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
-    x, adjs, gids, masks = data_prep.pre_dataset_spdata(**kw, return_node_mask=True)
-    np.testing.assert_array_equal(x, want[0])
-    assert masks.shape == (2, 50) and masks[0].sum() == 30 and masks[1].all()
+    x, adjs, gids = got
+    # the 30-node graph padded to 50: its last 20 nodes empty, every node of
+    # the tracked BA graphs has an edge
+    assert ((adjs.sum(axis=2) > 0).sum(axis=1) == [30, 50]).all()
     assert not x[gids == 0][:, 30:].any() and not adjs[0, 30:].any()
     # the empty corpus and a diverged record
     empty = data_prep.pre_dataset_spdata(**dict(kw, filter="none*"))

@@ -190,8 +190,9 @@ def test_state_dict_round_trip_jax_port_jax():
     JTMDM(TINY, seed=4).load_state_dict(back, strict=True)
     with pytest.raises(RuntimeError):
         port.load_state_dict({k: v for k, v in sd.items() if k != "model.lin4.bias"})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        diffusion_models("DiffusionTS", TINY, device="cpu")
+    # an unknown family raises the JAX factory's ValueError
+    with pytest.raises(ValueError, match="the definition don't exit"):
+        diffusion_models("DiffusionTS_v2", TINY, device="cpu")
 
 
 def _jax_normals(key, S, T, shape):

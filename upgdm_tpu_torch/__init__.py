@@ -8,7 +8,8 @@ Importing the package pulls in ``torch``, ``numpy`` and ``yaml`` only — never
 ``jax``, ``flax``, ``optax``, ``networkx`` or anything of ``upgdm_tpu``.
 
 Entry points (``eval.uncertainty.uncertainty_ews``, ``diffusion_models``,
-``NsDiffModel``, ``TMDMModel``, ``DiffSTGModel``, ``load_model_from_dir``,
+``NsDiffModel``, ``TMDMModel``, ``DiffSTGModel``, ``NsDiffSpatialModel``,
+``DiffusionTSModel``, ``load_model_from_dir``,
 ``fast_mpv_sweep``, ``run_evaluation_cache``, ``run_diffstg_evaluation_cache``,
 ``train.loop.run_training``, ``python -m upgdm_tpu_torch.cli.train_timeseries``,
 ``python -m upgdm_tpu_torch.cli.train_spdata``)

@@ -8,8 +8,8 @@ return their saved scores), hold_out / cross_val evaluation, best-config
 selection on min(train + val), and the
 HP_analysis_result/<records>/<dataset>/hyperparameters.yaml summary. Every
 run trains on ``device`` (default the card). A graph dataset comes with its
-``adj_bundle`` (adjs [G, V, V], graph_ids [num] and optionally node_masks
-[G, V]); each split hands ``run_training`` the ids of its windows. The
+``adj_bundle`` (adjs [G, V, V], graph_ids [num]); each split hands
+``run_training`` the ids of its windows. The
 process-parallel grid search waits for the multi-GPU slice.
 """
 from __future__ import annotations
@@ -39,12 +39,12 @@ def _split_train_val(n: int, train_size: float, seed: int = 0):
 
 
 def _split_adj(adj_bundle, tr_idx, va_idx):
-    """run_training's ``adj`` of a split: (adjs, train ids, val ids[, node
-    masks]), or None for a flat dataset."""
+    """run_training's ``adj`` of a split: (adjs, train ids, val ids), or None
+    for a flat dataset."""
     if adj_bundle is None:
         return None
-    adjs, gids, *masks = adj_bundle
-    return (adjs, gids[tr_idx], gids[va_idx], *masks)
+    adjs, gids = adj_bundle
+    return (adjs, gids[tr_idx], gids[va_idx])
 
 
 def hold_out_score(dataset, train_param, net_param, loss_param, optimizer_param, records_path,

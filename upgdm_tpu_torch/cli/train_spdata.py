@@ -8,7 +8,8 @@ configs/configs_diffusion_spdata.py:4-16):
         --train_mode grid|hold_out|cross_val --repeat N [--device cpu]
 
 Trains on the card unless ``--device cpu`` is given. The graphs of a corpus
-are padded to its largest node count, and the node masks reach the loss.
+are padded to its largest node count; as in the JAX package, the padded
+nodes count in the loss.
 """
 from __future__ import annotations
 
@@ -31,9 +32,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_dataset(dataset_param: dict):
-    """(windows [num, V, L, 1], (adjs, graph_ids, node_masks), F)."""
-    x, adjs, gids, masks = pre_dataset_spdata(**dataset_param, return_node_mask=True)
-    return x, (adjs, gids, masks), x.shape[-1]
+    """(windows [num, V, L, 1], (adjs, graph_ids), F)."""
+    x, adjs, gids = pre_dataset_spdata(**dataset_param)
+    return x, (adjs, gids), x.shape[-1]
 
 
 def main(argv=None):

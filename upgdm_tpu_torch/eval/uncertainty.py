@@ -742,8 +742,12 @@ def uncertainty_ews(
     cache_mode="write",
 ):
     """Per-window early-warning signal (MPV) of a trajectory under a trained
-    model: the JAX package's entry point, for NsDiff (and its variants), TMDM
-    and DiffSTG. ``device=None`` is the card.
+    model: the JAX package's entry point, for NsDiff (and its variants), TMDM,
+    DiffusionTS and DiffSTG (as in the JAX package, NsDiff_spatial has no
+    branch: sweep it with ``run_diffstg_evaluation_cache``). DiffusionTS takes
+    the generic path with its ``eval_rows_per_call`` (the window chunk) and
+    ``eval_checkpoint_every`` (the cache runner's flush interval).
+    ``device=None`` is the card.
 
     DiffSTG needs ``graph_file`` (a ``.graphml``) and network dynamics
     (SIS, neuronal, biomass), and always sweeps through the `.pt` cache

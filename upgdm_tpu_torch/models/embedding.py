@@ -1,5 +1,6 @@
-"""Token + positional embedding of the NS-Transformer, and the diffusion
-timestep embedding of DiffSTG's UGnet.
+"""Token + positional embedding of the NS-Transformer, the diffusion
+timestep embedding of the UGnets and DiffusionTS, and DiffusionTS's learned
+position table.
 
 Counterpart of ``DataEmbedding`` and ``sinusoidal_time_embedding`` in
 ``upgdm_tpu/models/embedding.py``: a circular Conv1d (k=3, no bias) over
@@ -20,7 +21,7 @@ from .dropout import Dropout
 from .layers import Conv1d
 
 __all__ = ["positional_encoding_table", "sinusoidal_time_embedding", "CircularConv1d",
-           "TokenEmbedding", "DataEmbedding"]
+           "TokenEmbedding", "DataEmbedding", "LearnablePositionalEncoding"]
 
 
 def positional_encoding_table(max_len: int, d_model: int) -> np.ndarray:
@@ -84,3 +85,18 @@ class DataEmbedding(nn.Module):
     def forward(self, x, gen=None):
         out = self.TokenEmbedding_0(x) + self.pe[: x.shape[1]][None]
         return self.dropout(out, gen)
+
+
+class LearnablePositionalEncoding(nn.Module):
+    """A learned position table ``pe`` [1, max_len, d_model] added to x
+    [B, max_len, d_model], then dropout (diffusionts_model_utils.py:66-85).
+    Drawn from U(-0.02, 0.02), as the reference's; the stored parameter is
+    the table, so checkpoints load verbatim."""
+
+    def __init__(self, d_model: int, max_len: int, dropout: float = 0.1):
+        super().__init__()
+        self.pe = nn.Parameter(torch.empty(1, max_len, d_model).uniform_(-0.02, 0.02))
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x, gen=None):
+        return self.dropout(x + self.pe, gen)

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["promote", "Linear", "Conv1d", "LayerNorm"]
+__all__ = ["promote", "Linear", "Conv1d", "LayerNorm", "gelu", "gelu2"]
 
 
 def promote(*tensors):
@@ -41,3 +41,14 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         x, w, b = promote(x, self.weight, self.bias)
         return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
+def gelu(x):
+    """torch ``nn.GELU``: the exact erf form (flax's default is the tanh
+    approximation; DiffusionTS asks for the exact one)."""
+    return F.gelu(x)
+
+
+def gelu2(x):
+    """DiffusionTS's GELU2, x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)

@@ -90,29 +90,7 @@ class NsDiffModel(DiffusionWrapperBase):
         # weights drawn from `seed` without touching the global RNG stream
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            if has_f:
-                self.net["cond_pred_model"] = NSTransformer(
-                    seq_len=self.seq_len,
-                    label_len=self.label_len,
-                    pred_len=self.pred_len,
-                    enc_in=self.dataset_nf,
-                    d_model=p.get("d_model", 512),
-                    n_heads=p.get("n_heads", 8),
-                    e_layers=p.get("e_layers", 2),
-                    d_layers=p.get("d_layers", 1),
-                    d_ff=p.get("d_ff", 256),
-                    dropout=p.get("dropout", 0.05),
-                    activation=p.get("activation", "gelu"),
-                    p_hidden_dims=tuple(p.get("p_hidden_dims", (64, 64))),
-                    p_hidden_layers=p.get("p_hidden_layers", 2),
-                )
-            if has_g:
-                self.net["cond_pred_model_g"] = SigmaEstimation(
-                    self.windows, self.pred_len, self.dataset_nf, 512, self.rolling_length
-                )
-            if has_denoiser:
-                self.net["model"] = NsDiffDenoiser(self.dataset_nf, self.diffusion_steps)
-            self.init_like_flax(self.net)
+            self._build_modules()
         self.net.to(self.device).eval()
 
         if train_model_select == "NsDiff_model" and p.get("load_pretrain"):
@@ -120,6 +98,34 @@ class NsDiffModel(DiffusionWrapperBase):
                 self._load_pretrain("cond_pred_model_g", pretrain_g_path)
             if pretrain_f_path and p.get("load_pretrain_f"):
                 self._load_pretrain("cond_pred_model", pretrain_f_path)
+
+    def _build_modules(self) -> None:
+        """The stage's modules into ``self.net``, drawn from the global
+        stream (seeded by ``__init__``) with flax's initialisers."""
+        p = self.net_param
+        if self.has_f:
+            self.net["cond_pred_model"] = NSTransformer(
+                seq_len=self.seq_len,
+                label_len=self.label_len,
+                pred_len=self.pred_len,
+                enc_in=self.dataset_nf,
+                d_model=p.get("d_model", 512),
+                n_heads=p.get("n_heads", 8),
+                e_layers=p.get("e_layers", 2),
+                d_layers=p.get("d_layers", 1),
+                d_ff=p.get("d_ff", 256),
+                dropout=p.get("dropout", 0.05),
+                activation=p.get("activation", "gelu"),
+                p_hidden_dims=tuple(p.get("p_hidden_dims", (64, 64))),
+                p_hidden_layers=p.get("p_hidden_layers", 2),
+            )
+        if self.has_g:
+            self.net["cond_pred_model_g"] = SigmaEstimation(
+                self.windows, self.pred_len, self.dataset_nf, 512, self.rolling_length
+            )
+        if self.has_denoiser:
+            self.net["model"] = NsDiffDenoiser(self.dataset_nf, self.diffusion_steps)
+        self.init_like_flax(self.net)
 
     def _load_pretrain(self, name: str, path) -> None:
         """net[name] from the ``name.`` subtree of ``<path>/model_trained``

@@ -32,7 +32,7 @@ from .embedding import sinusoidal_time_embedding
 from .gnn import gnn_conv
 from .layers import Conv1d, LayerNorm, Linear, promote
 
-__all__ = ["UGnet", "SpatialBlock", "TcnBlock", "ResidualBlock", "TimeConv",
+__all__ = ["GraphUNet", "UGnet", "SpatialBlock", "TcnBlock", "ResidualBlock", "TimeConv",
            "TimeConvTranspose", "init_like_flax"]
 
 
@@ -164,27 +164,24 @@ class Upsample(nn.Module):
         return self.conv(x)
 
 
-class UGnet(nn.Module):
-    """(x_t, t, x_masked, adj) -> eps prediction, all [B, V, T, F]
-    (ugnet.py:192-295): x and x_masked concatenated on the time axis (2T),
-    the channel multipliers define the resolutions, the skip connections pop
-    the down path's stack."""
+class GraphUNet(nn.Module):
+    """The down / middle / up trunk of residual blocks shared by DiffSTG's
+    ``UGnet`` and NsDiff_spatial's denoiser (ugnet.py:192-295): the channel
+    multipliers define the resolutions, the up path's skip connections pop
+    the down path's stack, and every block sits under its flax name
+    (``down_<i>``, ``middle_1``, ``middle_2``, ``up_<i>``)."""
 
-    def __init__(self, d_h: int, T_h: int, T_p: int, F: int,
-                 channel_multipliers: Sequence[int] = (1, 2), n_blocks: int = 2,
-                 gnn_name: str = "GCNConv", gnn_param: Optional[dict] = None, td_h: int = 10):
-        super().__init__()
-        self.d_h = d_h
-        T = T_h + T_p
-        mults = tuple(channel_multipliers)
+    def _build_trunk(self, d_h: int, td_h: int, gnn_name: str, gnn_param: Optional[dict],
+                     mults: Sequence[int], n_blocks: int, t_in: int, halve) -> int:
+        """Register the blocks for input width ``d_h`` over ``t_in`` steps;
+        ``halve(t)`` is the step count a Downsample leaves as its caller
+        counts it. Returns the time length after the up path."""
         n_res = len(mults)
 
-        def block(name, c_in, c_out, t_in):
-            self.add_module(name, ResidualBlock(c_in, c_out, t_in, d_h, td_h, gnn_name,
+        def block(name, c_in, c_out, t):
+            self.add_module(name, ResidualBlock(c_in, c_out, t, d_h, td_h, gnn_name,
                                                 gnn_param))
 
-        self.x_proj = Linear(F, d_h)
-        t_in = 2 * T
         stack = [d_h]  # the channels of the skip stack
         in_ch = out_ch = d_h
         bi = 0
@@ -201,7 +198,7 @@ class UGnet(nn.Module):
                 self.add_module(f"down_{bi}", Downsample(in_ch))
                 self.down.append((f"down_{bi}", "sample"))
                 stack.append(in_ch)
-                t_in = (t_in - 1) // 2 + 1
+                t_in = halve(t_in)
                 bi += 1
         block("middle_1", out_ch, out_ch, t_in)
         block("middle_2", out_ch, out_ch, t_in)
@@ -226,20 +223,9 @@ class UGnet(nn.Module):
                 self.up.append((f"up_{bi}", "sample"))
                 t_in = t_in * 2
                 bi += 1
-        if t_in != 2 * T:
-            raise ValueError(f"the time axis must round-trip to 2T = {2 * T}, got {t_in}")
-        self.out_proj = Linear(in_ch, F)
-        # Linear over the time axis 2T -> T (ugnet.py:246-247); flax's layout
-        # [T, 2T], not a Dense kernel
-        self.out_time_kernel = nn.Parameter(torch.empty(T, 2 * T))
-        self.out_time_bias = nn.Parameter(torch.zeros(T))
+        return t_in
 
-    def forward(self, x, t, x_masked, adj, gen=None):
-        hx = self.x_proj(torch.cat([x, x_masked], dim=2))  # [B, V, 2T, d_h]
-        # the token's type: a float32 temb would promote every residual, and
-        # all layers after it, back to float32 in bf16 sampling
-        temb = sinusoidal_time_embedding(t, self.d_h).to(hx.dtype)
-
+    def _trunk(self, hx, temb, adj, gen=None):
         stack = [hx]
         for name, kind in self.down:
             mod = getattr(self, name)
@@ -253,7 +239,36 @@ class UGnet(nn.Module):
                 hx = mod(torch.cat([hx, stack.pop()], dim=-1), temb, adj, gen)
             else:
                 hx = mod(hx)
-        e = self.out_proj(hx)  # [B, V, 2T, F]
+        return hx
+
+
+class UGnet(GraphUNet):
+    """(x_t, t, x_masked, adj) -> eps prediction, all [B, V, T, F]
+    (ugnet.py:192-295): x and x_masked concatenated on the time axis (2T)."""
+
+    def __init__(self, d_h: int, T_h: int, T_p: int, F: int,
+                 channel_multipliers: Sequence[int] = (1, 2), n_blocks: int = 2,
+                 gnn_name: str = "GCNConv", gnn_param: Optional[dict] = None, td_h: int = 10):
+        super().__init__()
+        self.d_h = d_h
+        T = T_h + T_p
+        self.x_proj = Linear(F, d_h)
+        t_out = self._build_trunk(d_h, td_h, gnn_name, gnn_param, tuple(channel_multipliers),
+                                  n_blocks, 2 * T, lambda t: (t - 1) // 2 + 1)
+        if t_out != 2 * T:
+            raise ValueError(f"the time axis must round-trip to 2T = {2 * T}, got {t_out}")
+        self.out_proj = Linear(d_h, F)
+        # Linear over the time axis 2T -> T (ugnet.py:246-247); flax's layout
+        # [T, 2T], not a Dense kernel
+        self.out_time_kernel = nn.Parameter(torch.empty(T, 2 * T))
+        self.out_time_bias = nn.Parameter(torch.zeros(T))
+
+    def forward(self, x, t, x_masked, adj, gen=None):
+        hx = self.x_proj(torch.cat([x, x_masked], dim=2))  # [B, V, 2T, d_h]
+        # the token's type: a float32 temb would promote every residual, and
+        # all layers after it, back to float32 in bf16 sampling
+        temb = sinusoidal_time_embedding(t, self.d_h).to(hx.dtype)
+        e = self.out_proj(self._trunk(hx, temb, adj, gen))  # [B, V, 2T, F]
         w, e, b = promote(self.out_time_kernel, e, self.out_time_bias)
         return torch.einsum("ot,bvtf->bvof", w, e) + b[None, None, :, None]
 
@@ -288,6 +303,6 @@ def init_like_flax(module: nn.Module) -> None:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, UGnet):
+        elif isinstance(m, GraphUNet):
             lecun(m.out_time_kernel, m.out_time_kernel.shape[0])
             m.out_time_bias.zero_()

@@ -1,9 +1,9 @@
-"""NsDiff, CARD (TMDM) and DiffSTG diffusion math: the forward (training)
-terms and the reverse chains.
+"""NsDiff, CARD (TMDM), DiffusionTS and DiffSTG diffusion math: the forward
+(training) terms, the reverse chains and DiffusionTS's x0-prediction helpers.
 
-Counterpart of the NsDiff, TMDM/CARD and DiffSTG sections of
-``upgdm_tpu/ops/diffusion.py`` (nsdiff_utils.py:40-158,163-239,271-284,
-tmdm_diffusion_utils.py:42-119 and graph_diffusion_model.py:46-73 of the
+Counterpart of ``upgdm_tpu/ops/diffusion.py``
+(nsdiff_utils.py:40-158,163-239,271-284, tmdm_diffusion_utils.py:42-119,
+DiffusionTS.py:96-124 and graph_diffusion_model.py:46-73 of the
 reference). A reverse chain is a
 Python loop over t; the denoiser is injected as ``model_fn(y, t)`` so the
 same loop runs the plain module on the CPU and the fused kernel on the card.
@@ -34,6 +34,9 @@ __all__ = [
     "nsdiff_p_sample_loop",
     "card_q_sample",
     "card_p_sample_loop",
+    "dts_q_sample",
+    "dts_predict_noise_from_start",
+    "dts_q_posterior",
     "diffstg_q_sample",
     "diffstg_posterior_step",
     "schedule_on",
@@ -277,6 +280,27 @@ def card_p_sample_loop(
         y = y_mean + float(sqrt_beta_hat[t]) * draw(i + 1)
     # final step t=0 -> y_0 (deterministic reparameterisation)
     return reparam(y, model_fn(y, 0), 0)
+
+
+# ---------------------------------------------------------------------------
+# DiffusionTS — x0-prediction helpers; t is a step or one step per batch row
+# ---------------------------------------------------------------------------
+
+def dts_q_sample(x_start, sched, t, noise):
+    return (_gather(sched.sqrt_alphas_cumprod, t, x_start) * x_start
+            + _gather(sched.sqrt_one_minus_alphas_cumprod, t, x_start) * noise)
+
+
+def dts_predict_noise_from_start(x_t, sched, t, x0):
+    return ((_gather(sched.sqrt_recip_alphas_cumprod, t, x_t) * x_t - x0)
+            / _gather(sched.sqrt_recipm1_alphas_cumprod, t, x_t))
+
+
+def dts_q_posterior(sched, x_start, x_t, t):
+    """(posterior mean, clipped log variance) of q(x_{t-1} | x_t, x_0)."""
+    mean = (_gather(sched.posterior_mean_coef1, t, x_t) * x_start
+            + _gather(sched.posterior_mean_coef2, t, x_t) * x_t)
+    return mean, _gather(sched.posterior_log_variance_clipped, t, x_t)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""NsDiff, CARD (TMDM) and DiffSTG noise schedules (numpy, host side).
+"""NsDiff, CARD (TMDM), DiffusionTS and DiffSTG noise schedules (numpy, host
+side).
 
-Counterpart of the NsDiff, CARD and DiffSTG parts of ``upgdm_tpu/ops/schedules.py``:
+Counterpart of ``upgdm_tpu/ops/schedules.py``:
 the same float64 construction, stored as float32, so every array equals the
 JAX package's bit for bit. A schedule is static per configuration; the
 samplers gather per-step scalars from it.
@@ -20,7 +21,8 @@ from typing import Tuple
 import numpy as np
 
 __all__ = ["make_beta_schedule", "nsdiff_cumulants", "NsDiffSchedule", "CardSchedule",
-           "card_schedule", "DiffSTGSchedule", "diffstg_schedule", "inference_time_pairs"]
+           "card_schedule", "DiffusionTSSchedule", "diffusionts_schedule", "DiffSTGSchedule",
+           "diffstg_schedule", "inference_time_pairs", "ddim_time_pairs"]
 
 
 def make_beta_schedule(
@@ -202,6 +204,69 @@ def card_schedule(
 
 
 # ---------------------------------------------------------------------------
+# DiffusionTS schedule (DiffusionTS.py:15-32, 96-124)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionTSSchedule:
+    """Frozen DiffusionTS schedule (all float32 ndarray, length T)."""
+
+    betas: np.ndarray
+    alphas_cumprod: np.ndarray
+    alphas_cumprod_prev: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
+    sqrt_recip_alphas_cumprod: np.ndarray
+    sqrt_recipm1_alphas_cumprod: np.ndarray
+    posterior_variance: np.ndarray
+    posterior_log_variance_clipped: np.ndarray
+    posterior_mean_coef1: np.ndarray
+    posterior_mean_coef2: np.ndarray
+    loss_weight: np.ndarray
+
+    @property
+    def num_timesteps(self) -> int:
+        return int(self.betas.shape[0])
+
+
+def diffusionts_schedule(beta_schedule: str = "cosine", timesteps: int = 100
+                         ) -> DiffusionTSSchedule:
+    """The linear or cosine betas and every derived table, in float64."""
+    if beta_schedule == "linear":
+        scale = 1000.0 / timesteps
+        betas = np.linspace(scale * 1e-4, scale * 2e-2, timesteps, dtype=np.float64)
+    elif beta_schedule == "cosine":
+        s = 0.008
+        steps = timesteps + 1
+        x = np.linspace(0, timesteps, steps, dtype=np.float64)
+        ac = np.cos(((x / timesteps) + s) / (1 + s) * math.pi * 0.5) ** 2
+        ac = ac / ac[0]
+        betas = np.clip(1 - (ac[1:] / ac[:-1]), 0.0, 0.999)
+    else:
+        raise ValueError(f"unknown beta schedule {beta_schedule!r}")
+
+    alphas = 1.0 - betas
+    acp = np.cumprod(alphas)
+    acp_prev = np.concatenate([[1.0], acp[:-1]])
+    posterior_variance = betas * (1.0 - acp_prev) / (1.0 - acp)
+    f32 = lambda x: np.asarray(x, dtype=np.float32)
+    return DiffusionTSSchedule(
+        betas=f32(betas),
+        alphas_cumprod=f32(acp),
+        alphas_cumprod_prev=f32(acp_prev),
+        sqrt_alphas_cumprod=f32(np.sqrt(acp)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
+        sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
+        sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1.0)),
+        posterior_variance=f32(posterior_variance),
+        posterior_log_variance_clipped=f32(np.log(np.clip(posterior_variance, 1e-20, None))),
+        posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
+        posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)),
+        loss_weight=f32(np.sqrt(alphas) * np.sqrt(1.0 - acp) / betas / 100.0),
+    )
+
+
+# ---------------------------------------------------------------------------
 # DiffSTG schedule (diffusion_schedulers.py:39-125)
 # ---------------------------------------------------------------------------
 
@@ -265,3 +330,11 @@ def inference_time_pairs(inference_schedule: str, T: int, inference_T: int):
         t2 = int(np.clip(t2, 0, T - 1))
         pairs.append((t1, t2))
     return pairs
+
+
+def ddim_time_pairs(total_timesteps: int, sampling_timesteps: int):
+    """DiffusionTS's DDIM (time, time_next) pairs (DiffusionTS.py:280-284);
+    the last pair's time_next is -1."""
+    times = np.linspace(-1, total_timesteps - 1, sampling_timesteps + 1)
+    times = list(reversed(times.astype(int).tolist()))
+    return list(zip(times[:-1], times[1:]))

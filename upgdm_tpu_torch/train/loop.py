@@ -24,13 +24,11 @@ cast back to float32 (``cast_loss``, the JAX package's semantics): the
 gradients, the master weights and Adam stay float32. Data parallelism raises
 until its slice lands.
 
-Graph models (DiffSTG) train on [num, V, T, F] windows with ``adj``: one
-adjacency [V, V] for every window, or the mixed-topology tuple
-``(adjs [G, V, V], train_graph_ids, val_graph_ids)``, gathered per batch,
-optionally with a fourth element ``node_masks [G, V]`` that is gathered the
-same way and reaches the loss, so padded nodes do not count. The JAX
-package's loop passes no node mask (its loss then averages over the padded
-nodes too); with the 3-tuple the port does the same.
+Graph models (DiffSTG, NsDiff_spatial) train on [num, V, T, F] windows with
+``adj``: one adjacency [V, V] for every window, or the mixed-topology tuple
+``(adjs [G, V, V], train_graph_ids, val_graph_ids)``, gathered per batch. As
+in the JAX package no node mask reaches the loss: the padded nodes of a
+mixed-size corpus count in its mean.
 
 A run is deterministic given its seed on the card too, as the JAX package's
 is: ``run_training`` holds cuDNN to its deterministic algorithms while it
@@ -63,9 +61,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[st
     ones; the count lives in the optimizer's first parameter group
     (``applied_updates``), so it is saved and resumed with its state. A
     NaN loss skips the update and leaves the count. Keywords of
-    ``step(batch, **kw)`` go to the loss (a graph batch's ``adj`` and
-    ``node_mask``); with bf16 training their float32 tensors are cast too, as
-    the JAX package casts every float32 argument of its loss."""
+    ``step(batch, **kw)`` go to the loss (the ``adj`` of a graph model);
+    with bf16 training their float32 tensors are cast too, as the JAX
+    package casts every float32 argument of its loss."""
     train_dt = str(model.net_param.get("train_dtype", "float32"))
     if train_dt not in ("float32", "bfloat16", "bf16"):
         raise ValueError(f"train_dtype={train_dt!r}: expected 'float32' or 'bfloat16'")
@@ -165,23 +163,18 @@ def _run_training(trainset, validationset, train_param, net_param, loss_param,
         model, optimizer, select_for_loss,
         None if epoch_sched is None else lambda n: epoch_sched(n // steps_per_epoch))
 
-    adjs = node_masks = train_gids = val_gids = None
+    adjs = train_gids = val_gids = None
     if isinstance(adj, tuple):
-        adjs, train_gids, val_gids, *rest = adj
+        adjs, train_gids, val_gids = adj
         adjs = np.asarray(adjs, np.float32)
-        node_masks = np.asarray(rest[0], bool) if rest else None
     elif adj is not None:
         adj = torch.as_tensor(np.asarray(adj, np.float32), device=model.device)
 
     def graph_of(idx, gids):
-        """The loss's graph keywords of a batch: its adjacencies (and node
-        masks), or none for a flat model."""
+        """The loss's graph keywords of a batch: its adjacencies, or none
+        for a flat model."""
         if adjs is not None:
-            g = np.asarray(gids)[idx]
-            kw = {"adj": torch.as_tensor(adjs[g], device=model.device)}
-            if node_masks is not None:
-                kw["node_mask"] = torch.as_tensor(node_masks[g], device=model.device)
-            return kw
+            return {"adj": torch.as_tensor(adjs[np.asarray(gids)[idx]], device=model.device)}
         if adj is not None:
             return {"adj": adj.expand(len(idx), *adj.shape)}
         return {}

@@ -119,15 +119,14 @@ def pre_dataset_timeseries_real(file_path, windows: int, pred_len: int, interval
 
 def pre_dataset_spdata(spdata_file_path, graph_file_path, windows: int, pred_len: int,
                        interval_step: int, sampling_t: float, filter: str = "*",
-                       return_node_mask: bool = False, **_) -> Tuple[np.ndarray, ...]:
-    """Graph dataset -> (x [num, V, L, 1], adjs [G, V, V], graph_ids [num])
-    and, with ``return_node_mask``, node_masks [G, V] bool.
+                       **_) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Graph dataset -> (x [num, V, L, 1], adjs [G, V, V], graph_ids [num]).
 
     Mirrors pre_DataSet_spdata (utils/utils.py:310-370): each trajectory
     directory <spdata_file_path>/<name> pairs with
     <graph_file_path>/<name>.graphml; its records hold ys_dynamic [T, Node].
     Every graph is padded to the largest node count (padded nodes have zero
-    adjacency rows and zero features, and False in the mask); every window is
+    adjacency rows and zero features); every window is
     emitted flipped, then original (:371-375). A non-finite record raises:
     a diverged simulation would otherwise poison a whole batch.
     """
@@ -151,11 +150,9 @@ def pre_dataset_spdata(spdata_file_path, graph_file_path, windows: int, pred_len
         windows_per_graph.append(wins_for_graph)
 
     if not graphs:
-        out = (np.zeros((0, 0, L, 1), np.float32), np.zeros((0, 0, 0), np.float32),
-               np.zeros((0,), np.int32))
-        return out + (np.zeros((0, 0), bool),) if return_node_mask else out
+        return (np.zeros((0, 0, L, 1), np.float32), np.zeros((0, 0, 0), np.float32),
+                np.zeros((0,), np.int32))
     vmax = max(g.num_nodes for g in graphs)
-    padded = [g.padded(vmax) for g in graphs]
     xs, gids = [], []
     for gi, wins in enumerate(windows_per_graph):
         for w in wins:
@@ -163,6 +160,5 @@ def pre_dataset_spdata(spdata_file_path, graph_file_path, windows: int, pred_len
                 w = np.concatenate([w, np.zeros((vmax - w.shape[0],) + w.shape[1:], w.dtype)])
             xs.append(w)
             gids.append(gi)
-    out = (np.stack(xs).astype(np.float32), np.stack([g.adj for g in padded]),
-           np.asarray(gids, np.int32))
-    return out + (np.stack([g.node_mask for g in padded]),) if return_node_mask else out
+    return (np.stack(xs).astype(np.float32), np.stack([g.padded(vmax).adj for g in graphs]),
+            np.asarray(gids, np.int32))

@@ -10,11 +10,15 @@ rename plus a transpose:
   - Conv  ``kernel [k, in, out]``     -> ``weight [out, in, k]``
   - Projector ``series_conv_kernel [k, S, 1]`` -> ``[1, S, k]`` (same name)
   - LayerNorm ``scale``               -> ``weight`` (no transpose); a
-    LayerNorm is flax's ``LayerNorm_<n>`` or UGnet's ``norm``
+    LayerNorm is flax's ``LayerNorm_<n>``, UGnet's ``norm`` or DiffusionTS's
+    ``ln2``, and a ``GraphNorm_<n>`` scales the same way
+  - a time-mixing Dense ``kernel [T_out, T_in]`` (DiffusionTS's ``proj``
+    and ``combine_m``) -> ``weight [T_in, T_out]``, like any 2-D kernel
   - ``bias``, ``ConditionalLinear.embed [n_steps, 128]``, the GAT vectors
-    ``att_src``/``att_dst``/``att`` [H, C] and UGnet's
-    ``out_time_kernel [T, 2T]``/``out_time_bias`` unchanged (not Dense
-    kernels: no transpose)
+    ``att_src``/``att_dst``/``att`` [H, C], the UGnets'
+    ``out_time_kernel``/``out_time_bias``, GraphNorm's ``alpha`` and
+    DiffusionTS's position tables ``pe`` unchanged (not Dense kernels: no
+    transpose)
 
 ``scaler_mean``/``scaler_std`` ride along untouched. Any other leaf name is
 an error in both directions, so a key set that does not belong to the port
@@ -31,12 +35,12 @@ __all__ = ["torch_state_from_flax", "flax_flat_from_torch", "SCALER_KEYS"]
 
 SCALER_KEYS = ("scaler_mean", "scaler_std")
 _PLAIN_LEAVES = ("bias", "embed", "att_src", "att_dst", "att", "out_time_kernel",
-                 "out_time_bias")
+                 "out_time_bias", "alpha", "pe")
 
 
 def _is_layer_norm(parent: str) -> bool:
     name = parent.rpartition(".")[2]
-    return name.startswith("LayerNorm") or name == "norm"
+    return name.startswith(("LayerNorm", "GraphNorm")) or name in ("norm", "ln2")
 
 
 def _transpose_kernel(a: np.ndarray) -> np.ndarray:
