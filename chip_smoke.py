@@ -48,7 +48,17 @@ the model-comparison width through ``uncertainty_ews`` (written, a cache hit;
 forwards and Langevin gradients counted), a profiled round at 32 rows with
 its peak memory, the card against the CPU on every forward of a chain, bf16
 against float32 MPV, and its train step. Neither family has a hand-written
-kernel on its path. Every phase that fails exits non-zero. Progress goes to
+kernel on its path. Then the SLBP analyses at the trained demo model's full
+width (``demo_artifacts/model`` over the tracked trajectory, 191 windows, K1
+at 160,000 rows and F 2): the sensitivity sweep timed with its 240 K1
+launches and a profiled chunk, the sampling, gx, MPV, direct and raw-variance
+analyses (cache hits with no launch), gx and the float32 ensemble against
+the CPU, K1 at that shape against its twin, and the demo's scan through the
+facade held to ``demo_artifacts/summary.json`` over two seeds; and the
+figure layer's loaders on the card (fig1 and ``mpv_collapse`` over
+``demo_fig1``, fig4-fig9 over the tracked SLBP model and trajectory under
+every name they read), rendered when matplotlib is installed. Every phase
+that fails exits non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
 last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
 kernel phases (build, K1, K2, K3 with their times): the short loop for work on
@@ -57,6 +67,7 @@ a kernel.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -164,7 +175,7 @@ DTS_PARAM = dict(
     infill_learning_rate=0.05, loss_type="l2", use_ff=True, n_z_samples=N_Z,
     parallel_sample=10, scaler_type="StandardScaler", task_model="DiffusionTS",
 )
-DTS_WINDOWS, DTS_TRAIN_B, DTS_ROWS = 2, 256, 32
+DTS_WINDOWS, DTS_TRAIN_B, DTS_ROWS = 1, 256, 32
 # the port's module bar (tests/test_torch_port_dts.py: atol 1e-5 of the output's
 # scale) on every forward; bf16 against float32 MPV at the JAX package's own
 # DiffusionTS bar (tests/test_models_e2e.py:174-210: the chain is chaotic)
@@ -1441,6 +1452,429 @@ def diffusionts_phase(smi_line, zero_counts, kernel_counts):
     require(np.isfinite(losses).all(), "diffusionts", f"step losses {losses}")
 
 
+# The SLBP analyses at the trained demo model's full width: demo_artifacts/model
+# (NsDiff, d_model 64 e2/d1, d_ff 128, F 2, W/P 100/100, 20 steps, n_z 100) over the
+# tracked trajectory (2,000,000 x 2, sampling_t 100 -> 2,000 points: 191 windows at
+# the step 10, 181 targets), in chunks of 16 windows: 12 chunks of 20 K1 launches
+# at 16 x 100 x 100 = 160,000 rows (examples/slbp_demo.py:146-156)
+SLBP_MODEL = DEMO / "model"
+SLBP_NAME = "dataset__w100p100st100"
+SLBP_WINDOWS, SLBP_TARGETS, SLBP_CHUNK, SLBP_ROWS = 191, 181, 16, 16 * 100 * 100
+SLBP_K1 = STEPS * -(-SLBP_WINDOWS // SLBP_CHUNK)  # 240 launches a sweep
+SLBP_GX_WINDOWS, SLBP_SAMPLE_WINDOWS = 8, 2
+# g(x) on the card against the CPU (tests/test_torch_parity.py); the demo
+# scan's gx metrics against demo_artifacts/summary.json (both packages on
+# the CPU reproduce them within 0.1%: tests/test_torch_port_slbp.py::
+# test_gx_metrics_reproduce_the_demo_record); its sampling metrics (statistics of
+# 100 draws a window, on another RNG stream than the record's) against the
+# same record at 3%: two card seeds gave 0.64% and 1.06% at most, 0.8% apart
+SLBP_GX_TOL, SLBP_GX_REL, SLBP_SAMPLING_REL = 1e-4, 0.01, 0.03
+SLBP_METRICS = ("baseline_mpv", "pre_transition_drop_percent", "global_drop_percent")
+# the figures' SLBP tree: the tracked model under every name fig4-fig9 read, the
+# tracked trajectory under every record name (examples/paper_figures_demo.py's
+# layout at the demo's total time)
+FIG_TT, FIG_D, FIG_NOISES = "200000.0", "1e-05", ("1e-05", "5e-06")
+# mpv_collapse over demo_fig1: each row's skip reason and gx baseline MPV as the
+# JAX package gives them on the CPU (python -m upgdm_tpu.figures.mpv_collapse
+# --ews-root demo_fig1/ews_results --source-root demo_fig1 --model-name NsDiff;
+# tests/test_torch_port_figures.py::test_mpv_collapse_on_demo_fig1_matches_jax
+# holds the port's CPU rows to JAX's); the neuronal record's transition
+# (t = 5.01) leaves too few MPV points before it
+MC_EXPECTED = {"biomass": ("", 0.04759270538176809),
+               "neuronal": ("too_few_pre_transition_mpv_points", None),
+               "SIS": ("", 0.7768259048461914)}
+
+
+def _install_slbp_model(models_dir, name):
+    """The tracked SLBP model as ``models_dir/<name>`` + ``<name>.yaml``."""
+    import shutil
+
+    models_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copy(SLBP_MODEL / "model_trained", models_dir / name)
+    shutil.copy(SLBP_MODEL / "model_trained.yaml", models_dir / f"{name}.yaml")
+
+
+def _finite(values, n=None, positive=True):
+    import numpy as np
+
+    v = np.asarray(values, float)
+    return ((n is None or v.shape == (n,)) and v.size > 0 and np.isfinite(v).all()
+            and (not positive or (v > 0).all()))
+
+
+def slbp_phase(smi_line, zero_counts, kernel_counts, bound):
+    """The six SLBP analyses on the card over the 191 windows of the tracked
+    model and trajectory (``slbp``): the sensitivity sweep timed with its K1
+    launches and a profiled chunk; the sampling analysis served from its
+    cache and the gx analysis, 0 launches each, gx against the CPU; the MPV
+    analysis written then hit; the direct analysis on gx then on sampling
+    with the prediction error; the raw window variance; the card's float32
+    ensemble per sample against the CPU's on shared noise; K1 at this path's
+    shape against its twin; then the demo's scan through the facade, held
+    to ``demo_artifacts/summary.json`` over two seeds. Returns the K1
+    launches of the analyses' sweeps."""
+    import contextlib
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from upgdm_tpu_torch.eval import uncertainty as U
+    from upgdm_tpu_torch.figures.mpv_collapse import locate_transition, metric_row_from_mpv
+    from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
+        denoiser_gammas, denoiser_weights, fused_denoiser_rows, fused_denoiser_rows_reference,
+        step_weights,
+    )
+    from upgdm_tpu_torch.ops.kernels.roofline import k1_work
+    from upgdm_tpu_torch.ops.windows import slbp_sensitivity_windows
+    from upgdm_tpu_torch.utils.io import load_pt
+
+    data_file = next((DEMO / "slbp_data").rglob("*.pt"))
+    rec = load_pt(data_file)
+    series, tdata = np.asarray(rec["ys_dynamic"]), np.asarray(rec["ts_dynamic"])
+    record = json.loads((DEMO / "summary.json").read_text())
+    out, launches = {}, {}
+
+    def counted(name, fn):
+        zero_counts()
+        t, r = host_s(fn)
+        launches[name] = kernel_counts()
+        out[f"{name}_s"] = t
+        return r
+
+    # the model's yaml loads its pretrain stages from paths under the repo root
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(REPO):
+        tmp = Path(tmp)
+        root, cpu_root, model_dir = tmp / "card", tmp / "cpu", tmp / "model"
+        for r in (root, cpu_root):
+            _install_slbp_model(r / "models", SLBP_NAME)
+        shutil.copytree(SLBP_MODEL, model_dir)
+        args = (SLBP_NAME, series, tdata)
+
+        # -- the sensitivity sweep (a chunk into a cache of its own first, to warm up)
+        U.slbp_sensitivity_ews(root, *args, data_trend="warm", max_windows=SLBP_CHUNK,
+                               device="cuda")
+        sens = counted("sensitivity", lambda: U.slbp_sensitivity_ews(root, *args, device="cuda"))
+        n_sens = len(sens["mpv"])
+        model, _, _ = U.load_sensitivity_model(root, SLBP_NAME, device="cuda")
+        win, targets, _ = slbp_sensitivity_windows(series, tdata, 100, 100, 100, 10)
+        prof = idle_share(lambda: U.batched_window_ensemble(
+            model, win[:SLBP_CHUNK, None], model.pred_len, chunk_windows=SLBP_CHUNK,
+            device="cuda"))
+        require(n_sens == SLBP_WINDOWS and _finite(sens["mpv"], SLBP_WINDOWS)
+                and _finite(sens["prediction_error"], SLBP_TARGETS)
+                and launches["sensitivity"] == (SLBP_K1, 0, 0), "slbp",
+                f"sensitivity: {n_sens} windows, K1/K2/K3 launches {launches['sensitivity']}")
+
+        # -- sampling: the sensitivity sweep's cache; gx: no kernel
+        samp = counted("sampling", lambda: U.slbp_sampling_analysis(
+            root, *args, device="cuda", allow_unavailable=False))
+        require(samp["available"] and samp["cache_path"] == sens["cache_path"]
+                and samp["mpv"] == [float(v) for v in sens["mpv"]]
+                and len(samp["intrinsic_dimension"]) == SLBP_WINDOWS
+                and launches["sampling"] == (0, 0, 0), "slbp",
+                f"sampling: {samp['reason']!r}, launches {launches['sampling']}")
+        gx = counted("gx", lambda: U.slbp_gx_analysis(root, *args, device="cuda"))
+        gx_cpu = U.slbp_gx_analysis(cpu_root, *args, device="cpu", max_windows=SLBP_GX_WINDOWS)
+        a, b = np.asarray(gx["gx_mpv"][:SLBP_GX_WINDOWS]), np.asarray(gx_cpu["gx_mpv"])
+        gx_over = float(np.max(np.abs(a - b) - (SLBP_GX_TOL + SLBP_GX_TOL * np.abs(b))))
+        require(_finite(gx["gx_mpv"], SLBP_WINDOWS) and launches["gx"] == (0, 0, 0)
+                and gx_over <= 0, "slbp", f"gx: card off the CPU by {gx_over} over the bar, "
+                f"launches {launches['gx']}")
+
+        # -- MPV analysis written then hit; the direct analysis on gx, then sampling
+        cache = tmp / "trends" / "D_1e-05_increase.pt"
+        mpv_w = counted("mpv_write", lambda: U.slbp_mpv_analysis(root, *args, cache,
+                                                                 device="cuda"))
+        mpv_h = counted("mpv_hit", lambda: U.slbp_mpv_analysis(root, *args, cache,
+                                                               device="cuda"))
+        require(launches["mpv_write"] == (SLBP_K1, 0, 0) and launches["mpv_hit"] == (0, 0, 0)
+                and mpv_h["mpv"] == mpv_w["mpv"] and _finite(mpv_w["mpv"], SLBP_WINDOWS)
+                and mpv_h["sample_window_step"] == 10
+                and mpv_h["uncertainty_source"] == "sampling", "slbp",
+                f"mpv analysis: launches {launches['mpv_write']} / {launches['mpv_hit']}")
+        d_gx = counted("direct_gx", lambda: U.slbp_direct_model_cache_analysis(
+            model_dir, series, tdata, tmp / "direct/gx.pt", cache_kind="gx", device="cuda"))
+        d_gx_rel = float(np.max(np.abs(np.asarray(d_gx["mpv"]) - gx["gx_mpv"])
+                                / np.asarray(gx["gx_mpv"])))
+        d_s = counted("direct_sampling", lambda: U.slbp_direct_model_cache_analysis(
+            model_dir, series, tdata, tmp / "direct/samp.pt", cache_kind="sampling",
+            compute_prediction_error=True, device="cuda"))
+        require(d_gx["uncertainty_source"] == "gx" and d_gx_rel <= 1e-6
+                and launches["direct_gx"] == (0, 0, 0)
+                and d_s["uncertainty_source"] == "sampling" and _finite(d_s["mpv"], SLBP_WINDOWS)
+                and _finite(d_s["prediction_error"], SLBP_TARGETS)
+                and launches["direct_sampling"] == (SLBP_K1, 0, 0), "slbp",
+                f"direct: gx {d_gx_rel} off the gx analysis, launches "
+                f"{launches['direct_gx']} / {launches['direct_sampling']}")
+        raw = U.slbp_raw_window_variance(series, tdata, windows=100, sampling_t=100,
+                                         device="cuda")
+        raw_cpu = U.slbp_raw_window_variance(series, tdata, windows=100, sampling_t=100,
+                                             device="cpu")
+        raw_d = float(np.max(np.abs(raw["variance"] - raw_cpu["variance"])))
+        require(_finite(raw["variance"], SLBP_WINDOWS) and raw_d == 0.0, "slbp",
+                f"raw window variance: card off the CPU by {raw_d}")
+
+        # -- the card's float32 ensemble against the CPU's, per sample, shared noise
+        f32 = {"sampling_dtype": "float32"}
+        mc, _, _ = U.load_sensitivity_model(root, SLBP_NAME, device="cuda", infer_params=f32)
+        mh, _, _ = U.load_sensitivity_model(cpu_root, SLBP_NAME, device="cpu", infer_params=f32)
+        x = np.asarray(mc.scaler_transform(win[:SLBP_SAMPLE_WINDOWS]), np.float32)
+        rng = np.random.default_rng(9)
+        noise = [rng.standard_normal((mc.n_z_samples,) + x.shape[:1] + (mc.pred_len, 2))
+                 .astype(np.float32) for _ in range(mc.diffusion_steps)]
+        ens_c = mc.sample_chain(*mc.f_and_g(x), noise=noise).cpu()
+        ens_h = mh.sample_chain(*mh.f_and_g(x), noise=noise)
+        ens_over = ((ens_c - ens_h).abs() - (STG_ATOL + STG_RTOL * ens_h.abs())).max().item()
+        require(torch.isfinite(ens_c).all().item() and ens_over <= 0, "slbp",
+                f"float32 ensemble: card off the CPU by {ens_over} over rtol {STG_RTOL} "
+                f"atol {STG_ATOL}")
+
+        # -- K1 at this path's shape (160,000 rows, F 2, bf16 matmuls) against its twin
+        with torch.no_grad():
+            den = model.denoiser
+            W = denoiser_weights(den)
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            xk = torch.randn(SLBP_ROWS, 6, generator=gen, device="cuda")
+            xk[:, 4:] = xk[:, 4:].abs() + 0.05  # gx > 0
+            g7, kw16 = denoiser_gammas(den, 7), step_weights(W, torch.bfloat16)
+            got = fused_denoiser_rows(xk, g7, kw16, matmul_dtype="bfloat16")
+            want = fused_denoiser_rows_reference(xk, g7, W, matmul_dtype="bfloat16")
+            k1_err = max((p - q).abs().max().item() for p, q in zip(got, want))
+            k1_ms = cuda_ms(lambda: fused_denoiser_rows(xk, g7, kw16, matmul_dtype="bfloat16"))
+            k1_plain = cuda_ms(lambda: fused_denoiser_rows_reference(
+                xk, g7, W, matmul_dtype="bfloat16"))
+            k1_bound = bound(k1_work(SLBP_ROWS, 2), "bfloat16")
+        require(k1_err <= TOL["bfloat16"], "slbp",
+                f"K1 at {SLBP_ROWS} rows, F 2: off its twin by {k1_err}")
+
+        # -- the demo's scan through the facade (examples/slbp_demo.py:146-156), two seeds
+        ts = np.asarray(tdata, float)[::1000]
+        transition = locate_transition(ts, np.asarray(series, float)[::1000, 0], "SLBP",
+                                       "increase")["transition_time"]
+        orig_load = U.load_model_from_dir
+        scans = {}
+        for seed in (0, 1):
+            def seeded(*a, **k):
+                m, p = orig_load(*a, **k)
+                m.generator.manual_seed(seed)
+                return m, p
+
+            sub = tmp / f"scan{seed}"
+            with mock.patch.object(U, "load_model_from_dir", seeded):
+                r = counted(f"scan{seed}", lambda: U.uncertainty_ews(
+                    model_save_file=model_dir, data_file=data_file, dynamic_type="SLBP",
+                    cache_path=sub / "mpv_cache.pt", nsdiff_g_path=sub / "mpv_cache_gx.pt",
+                    sample_window_step=10, uncertainty_method="both", chunk_windows=16,
+                    load_model_when_cached=True, device="cuda"))
+            m_s = metric_row_from_mpv(r["time_points"], r["ews"], transition,
+                                      slope_window_points=10)
+            m_g = metric_row_from_mpv(r["nsdiff_g"]["time_points"], r["nsdiff_g"]["ews"],
+                                      transition, slope_window_points=10)
+            scans[seed] = {
+                "windows": len(r["ews"]), "seconds": out[f"scan{seed}_s"],
+                "k1_launches": launches[f"scan{seed}"][0],
+                "sampling": {k: m_s.get(k) for k in SLBP_METRICS},
+                "gx": {k: m_g.get(k) for k in SLBP_METRICS},
+                "sampling_rel": {k: m_s[k] / record["sampling_mpv"][k] - 1 for k in SLBP_METRICS},
+                "gx_rel": {k: m_g[k] / record["gx_mpv"][k] - 1 for k in SLBP_METRICS},
+            }
+            require(m_s.get("skip_reason") == "" and m_g.get("skip_reason") == ""
+                    and len(r["ews"]) == SLBP_WINDOWS and _finite(r["ews"], SLBP_WINDOWS)
+                    and launches[f"scan{seed}"] == (SLBP_K1, 0, 0), "slbp",
+                    f"scan seed {seed}: {len(r['ews'])} windows, launches "
+                    f"{launches[f'scan{seed}']}, skips {m_s.get('skip_reason')!r} / "
+                    f"{m_g.get('skip_reason')!r}")
+        rendered = None
+        if importlib.util.find_spec("matplotlib") is not None:
+            png = tmp / "slbp_mpv_collapse.png"
+            U.plot_single_model_check(r, title="SLBP NsDiff MPV", save_path=png)
+            rendered = png.exists() and png.stat().st_size > 0
+            require(rendered, "slbp", "plot_single_model_check wrote no PNG")
+    emit(phase="slbp", card=smi_line, windows=n_sens, chunk=SLBP_CHUNK,
+         seconds_sensitivity=out["sensitivity_s"],
+         windows_per_hr=n_sens / out["sensitivity_s"] * 3600.0,
+         k1_launches_sensitivity=launches["sensitivity"][0], rows_per_launch=SLBP_ROWS,
+         profiled_chunk=prof, seconds={k[:-2]: v for k, v in out.items()},
+         launches_k1_k2_k3=launches, gx_card_vs_cpu_over_bar=gx_over,
+         direct_gx_vs_gx_rel=d_gx_rel, float32_ensemble_card_vs_cpu_over_bar=ens_over,
+         k1_slbp_shape={"rows": SLBP_ROWS, "F": 2, "ms": k1_ms, "plain_ms": k1_plain,
+                        "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+                        "max_abs_err": k1_err},
+         transition_time=transition, record_transition_time=record["transition_time_state"],
+         scans=scans, plot_single_model_check=rendered or "skipped: no matplotlib",
+         bars={"gx_card_vs_cpu": SLBP_GX_TOL, "gx_vs_record": SLBP_GX_REL,
+               "sampling_vs_record": SLBP_SAMPLING_REL, "ensemble": [STG_RTOL, STG_ATOL]})
+    require(transition == record["transition_time_state"], "slbp",
+            f"transition {transition} vs the record's {record['transition_time_state']}")
+    for seed, s in scans.items():
+        gx_rel = max(abs(v) for v in s["gx_rel"].values())
+        s_rel = max(abs(v) for v in s["sampling_rel"].values())
+        require(gx_rel <= SLBP_GX_REL and s_rel <= SLBP_SAMPLING_REL, "slbp",
+                f"scan seed {seed} against demo_artifacts/summary.json: gx {gx_rel:.4%} "
+                f"(bar {SLBP_GX_REL:.0%}), sampling {s_rel:.4%} (bar {SLBP_SAMPLING_REL:.0%})")
+    return sum(launches[k][0] for k in ("sensitivity", "mpv_write", "direct_sampling",
+                                        "scan0", "scan1"))
+
+
+def figures_phase(smi_line, zero_counts, kernel_counts):
+    """The figure layer on the card (``figures``), over temporary copies of
+    the tracked trees: fig1's data over ``demo_fig1`` (the NsDiff arm of each
+    dynamics, swept through K1), ``mpv_collapse`` over the same tree (every
+    row valid), and fig4-fig9's loaders over a tree with the tracked SLBP
+    model under every name they read and the tracked trajectory under every
+    record name. Each loader's MPVs are checked finite and its K1 launches
+    counted; with matplotlib each figure is rendered too (this phase needs
+    none). Returns the K1 launches of the loaders."""
+    import contextlib
+    import csv
+    import shutil
+
+    import numpy as np
+
+    from upgdm_tpu_torch.figures import (
+        fig1_model_compare as F1, fig4_model_sensitivity as F4, fig5_tipping_types as F5,
+        fig6_slbp_model_analysis as F6, fig7_train_analysis as F7, fig8_train_source as F8,
+        fig9_smoothing as F9, mpv_collapse as MC,
+    )
+    from upgdm_tpu_torch.figures.common import TRENDS, load_dynamic_record, slbp_source_path
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    t_phase = time.perf_counter()
+    launches, seconds = {}, {}
+
+    def counted(name, fn):
+        zero_counts()
+        seconds[name], r = host_s(fn)
+        k1, k2, k3 = kernel_counts()
+        require(k2 == 0 and k3 == 0, "figures", f"{name}: K2/K3 launched {k2}/{k3} times")
+        launches[name] = k1
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(REPO):
+        tmp = Path(tmp)
+        outdir = tmp / "out"
+        # -- fig1 and the MPV-collapse statistics over demo_fig1
+        f1 = tmp / "demo_fig1"
+        shutil.copytree(REPO / "demo_fig1", f1, ignore=shutil.ignore_patterns("figures"))
+        base1 = ["--ews-root", str(f1 / "ews_results"), "--source-root", str(f1)]
+        fig1 = counted("fig1", lambda: F1.collect_fig1_data(
+            f1 / "ews_results", f1, "increase", "barabasi_albert_12_0", ("NsDiff",),
+            device="cuda"))
+        ok1 = all(_finite(d["models"]["NsDiff"]["ews"]) for d in fig1.values())
+        require(len(fig1) == 3 and ok1 and launches["fig1"] > 0, "figures",
+                f"fig1: finite MPVs {ok1}, K1 launches {launches['fig1']}")
+        mc_out = outdir / "mpv_collapse"
+        counted("mpv_collapse", lambda: MC.main(
+            base1 + ["--output-dir", str(mc_out), "--model-name", "NsDiff", "--device", "cuda"]
+            + (["--plot-checks"] if have_mpl else [])))
+        with open(mc_out / "mpv_collapse_samples.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        got_mc = {r["dynamic_type"]: (r["skip_reason"], float(r["baseline_mpv"] or "nan"))
+                  for r in rows}
+        mc_ok = len(rows) == 3 and all(
+            got_mc[k][0] == skip and (base is None or abs(got_mc[k][1] / base - 1) <= SLBP_GX_TOL)
+            for k, (skip, base) in MC_EXPECTED.items())
+        require(mc_ok, "figures", f"mpv_collapse rows (skip reason, baseline MPV) {got_mc}, "
+                f"the JAX package's {MC_EXPECTED}")
+
+        # -- fig4-fig9: the SLBP tree
+        ews, src = tmp / "slbp/ews_results", tmp / "slbp/dataset"
+        for bank, names in (
+                ("NsDiff_pred/models", [f"dataset__w200p{p}st100" for p in F4.PRED_LENS]),
+                ("NsDiff_windows/models", [f"dataset__w{w}p200st100" for w in F4.WINDOW_LENS]),
+                ("NsDiff_trends/models", [F5.MODEL_NAME]),
+                ("NsDiff_machine/NsDiff/models", [F6.DIFFUSION_MODEL_NAME, F9.MODEL_NAME]),
+                ("NsDiff_machine/preg/models", [F6.PREG_MODEL_NAME])):
+            for name in names:
+                _install_slbp_model(ews / bank, name)
+        dirs = ([ews / "NsDiff_dataset_contant" / f for f, _ in F7.TRAIN_D_PANELS + F7.TRAIN_N_PANELS]
+                + [ews / "NsDiff_machine" / f for f, _ in F7.ABLATION_PANELS]
+                + [ews / "NsDiff_dataset" / f for f, _, _ in F8.MODEL_PANELS])
+        for d in dirs:
+            shutil.copytree(SLBP_MODEL, d)
+        tracked = next((DEMO / "slbp_data").rglob("*.pt"))
+        stand_ins = []
+        for trend in TRENDS:
+            for d in FIG_NOISES:
+                path = slbp_source_path(src, FIG_TT, trend, d)
+                path.parent.mkdir(parents=True, exist_ok=True)
+                path.symlink_to(tracked)
+                if (trend, d) != ("increase", FIG_D):
+                    stand_ins.append(str(path.relative_to(src)))
+        emit(phase="figures", stand_in_records=stand_ins,
+             note="the repo tracks one SLBP record (increase, D 1e-05); the tracked "
+                  "trajectory stands in under these names")
+        series_t = load_dynamic_record(slbp_source_path(src, FIG_TT, "increase", FIG_D))
+        dev = {"device": "cuda"}
+        f4 = counted("fig4", lambda: F4.load_sensitivity_data(
+            ews, src, "increase", "mpv", total_time=FIG_TT, d_value=FIG_D, **dev))
+        f5 = counted("fig5", lambda: [F5.load_panel_data(ews, src, trend, FIG_TT, "t2e5",
+                                                         FIG_D, 10, **dev) for trend in TRENDS])
+        f6 = counted("fig6", lambda: [F6.load_panel_data(ews, src, trend, total_time=FIG_TT,
+                                                         d_value=FIG_D, **dev)
+                                      for trend in TRENDS])
+        f7 = counted("fig7", lambda: (
+            [F7.load_gx_panel(ews, series_t[1], series_t[0], "increase", f, t, FIG_TT, FIG_D,
+                              **dev) for f, t in F7.TRAIN_D_PANELS + F7.TRAIN_N_PANELS]
+            + [F7.load_ablation_panel(ews, series_t[1], series_t[0], "increase", f, t, FIG_TT,
+                                      FIG_D, **dev) for f, t in F7.ABLATION_PANELS]))
+        recs8 = {trend: F8.load_slbp_record(src, trend, FIG_TT, FIG_D) for trend in TRENDS}
+        f8 = counted("fig8", lambda: [
+            F8.load_mpv(ews / "NsDiff_dataset" / f, recs8[trend], trend, FIG_TT, FIG_D, **dev)
+            for trend in TRENDS for f, _, _ in F8.MODEL_PANELS])
+        f9 = counted("fig9", lambda: [F9.load_signal(ews, src, noise, "increase", smooth, FIG_TT,
+                                                     **dev)
+                                      for noise in FIG_NOISES for smooth in (False, True)])
+        unavailable = [p["sampling"]["reason"] for p in f6 if not p["sampling"].get("available")]
+        require(not unavailable, "figures", f"fig6: sampling unavailable: {unavailable}")
+        checks = {
+            "fig4": all(_finite(v, SLBP_WINDOWS) for k in ("pred_ews", "win_ews")
+                        for v in f4[k].values()),
+            "fig5": all(_finite(p["mpv"], SLBP_WINDOWS) for p in f5),
+            "fig6": all(_finite(p["sampling"]["mpv"], SLBP_WINDOWS)
+                        and _finite(p["diffusion_gx"]["gx_mpv"], SLBP_WINDOWS)
+                        and _finite(p["preg_gx"]["gx_mpv"], SLBP_WINDOWS)
+                        and _finite(p["raw_variance"]["variance"], positive=False)
+                        for p in f6),
+            "fig7": all(_finite(p["mpv"], SLBP_WINDOWS)
+                        and ("error" not in p or _finite(p["error"], SLBP_TARGETS)) for p in f7),
+            "fig8": all(_finite(s["mpv"], SLBP_WINDOWS) for s in f8),
+            "fig9": all(_finite(s["gx_mpv"], SLBP_WINDOWS) for s in f9),
+        }
+        sweeps = {"fig4": len(F4.PRED_LENS) + len(F4.WINDOW_LENS), "fig5": len(TRENDS),
+                  "fig6": len(TRENDS), "fig7": len(F7.ABLATION_PANELS), "fig8": 0, "fig9": 0}
+        wrong = {k: launches[k] for k, n in sweeps.items() if launches[k] != n * SLBP_K1}
+        require(all(checks.values()) and not wrong, "figures",
+                f"finite MPVs {checks}; K1 launches off {SLBP_K1} a sweep: {wrong}")
+
+        render = "skipped: no matplotlib"
+        if have_mpl:  # every loader above left its caches: the renders sweep nothing
+            slbp_base = ["--ews-root", str(ews), "--source-root", str(src)]
+            for mod, argv in (
+                    (F1, base1 + ["--graph", "barabasi_albert_12_0", "--models", "NsDiff"]),
+                    (F4, slbp_base + ["--total-time", FIG_TT, "--d-value", FIG_D]),
+                    (F5, slbp_base + ["--d-values", FIG_D, "--time-rows", f"{FIG_TT}:t2e5:10"]),
+                    (F6, slbp_base + ["--total-time", FIG_TT, "--d-value", FIG_D]),
+                    (F7, slbp_base + ["--total-time", FIG_TT, "--d-value", FIG_D]),
+                    (F8, slbp_base + ["--total-time", FIG_TT, "--d-value", FIG_D]),
+                    (F9, slbp_base + ["--total-time", FIG_TT])):
+                name = mod.__name__.rsplit(".", 1)[1]
+                counted(f"render_{name}", lambda: mod.main(
+                    argv + ["--output-dir", str(outdir / name), "--device", "cuda"]))
+                pngs = list((outdir / name).glob("*.png"))
+                require(len(pngs) == 1 and launches[f"render_{name}"] == 0, "figures",
+                        f"{name}: PNGs {pngs}, K1 launches {launches[f'render_{name}']}")
+            render = "rendered"
+    emit(phase="figures", card=smi_line, seconds=time.perf_counter() - t_phase,
+         loader_seconds=seconds, k1_launches=launches, render=render,
+         mpv_collapse_rows=[{k: r[k] for k in ("dynamic_type", "transition_time", "baseline_mpv",
+                                                "global_drop_percent", "skip_reason")}
+                            for r in rows])
+    return sum(v for k, v in launches.items() if not k.startswith("render_"))
+
+
 def new_kernel_spills(build_log):
     """ptxas lines of the tensor-core kernels that report a spill."""
     bad, current = [], ""
@@ -2100,6 +2534,11 @@ def main(argv=None):
     nsdiff_spatial_phase(smi_line, zero_counts, kernel_counts)
     diffusionts_phase(smi_line, zero_counts, kernel_counts)
 
+    # -- 19-20. the SLBP analyses and the figure layer, through K1 ---------------------
+    k1_by_path = {"nsdiff_main": k1_launches,
+                  "slbp": slbp_phase(smi_line, zero_counts, kernel_counts, bound),
+                  "figures": figures_phase(smi_line, zero_counts, kernel_counts)}
+
     def row(name, src, replaces, launches, err, ms, plain, bound, act=None):
         out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": launches, "max_abs_err": err, "ms": ms[mm_main],
@@ -2123,10 +2562,13 @@ def main(argv=None):
     k2_row.update(ms_act_bf16_float32=k2a_ms["float32"],
                   plain_ms_act_bf16_float32=k2a_plain_ms["float32"],
                   max_abs_err_act_bf16_float32=k2a_err["float32"])
+    k1_row = row("fused_denoiser", "upgdm_tpu_torch/csrc/fused_denoiser.cu",
+                 "upgdm_tpu/ops/pallas/fused_denoiser.py:152", sum(k1_by_path.values()),
+                 k1_err[mm_main], k1_ms, k1_plain_ms, k1_bound,
+                 (k1a_launches, k1a_err, k1a_ms, k1a_plain_ms))
+    k1_row["launches_by_path"] = k1_by_path
     print(json.dumps({"kernels": [
-        row("fused_denoiser", "upgdm_tpu_torch/csrc/fused_denoiser.cu",
-            "upgdm_tpu/ops/pallas/fused_denoiser.py:152", k1_launches, k1_err[mm_main],
-            k1_ms, k1_plain_ms, k1_bound, (k1a_launches, k1a_err, k1a_ms, k1a_plain_ms)),
+        k1_row,
         k2_row,
         row("fused_tmdm", "upgdm_tpu_torch/csrc/fused_tmdm.cu",
             "upgdm_tpu/ops/pallas/fused_denoiser.py:250", k3_launches, k3_err[mm_main],

@@ -1,8 +1,7 @@
 """The evaluation API: rolling windows -> ensembles -> mean predictive
 variance, behind the ``uncertainty_ews`` facade.
 
-Counterpart of ``upgdm_tpu/eval/uncertainty.py`` without the SLBP analyses:
-``uncertainty_ews`` (a checkpoint directory and a trajectory in, per-window
+Counterpart of ``upgdm_tpu/eval/uncertainty.py``: ``uncertainty_ews`` (a checkpoint directory and a trajectory in, per-window
 MPV out, through the `.pt` caches and their `.mpv.json` sidecars or straight
 from the device with ``cache_mode="none"``) and the helpers it calls
 (``load_sensitivity_model``, the cache paths, ``load_scaler_view``),
@@ -21,7 +20,17 @@ is double-buffered: chunk i+1 is enqueued on the device before chunk i's
 results are read back. MPV is taken in raw space, after the inverse scaler.
 DiffSTG sweeps one window (one graph) at a time through
 ``run_diffstg_evaluation_cache``, with the same ``.partial`` checkpoints and
-sidecars. The SLBP analyses are not ported yet.
+sidecars.
+
+The SLBP analyses (``slbp_sensitivity_ews``, ``slbp_sampling_analysis``,
+``slbp_gx_analysis``, ``slbp_mpv_analysis``,
+``slbp_direct_model_cache_analysis``, ``slbp_raw_window_variance``) run a
+model of the ``models/<name>`` layout over the windows of one [T, F]
+trajectory, through caches of [pred_len, F, S] ensembles or [pred_len, F]
+gx per window under ``<root>/datas/``. Unlike the facade they summarise a
+cache as stored, in scaled space, as the JAX package does. Every entry point
+takes ``device``; ``None`` is the card. ``plot_single_model_check`` draws a
+facade result (matplotlib is imported in the call).
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import torch
 
 from ..models.factory import diffusion_models
 from ..ops.graph import graphml_to_adjacency
+from ..ops.rolling import window_variance_1d
 from ..ops.windows import (
     DEFAULT_SAMPLE_WINDOW_STEP,
     DEFAULT_SAMPLING_T,
@@ -47,7 +57,9 @@ from ..ops.windows import (
     infer_sample_window_step_from_cache,
     normalize_time_series,
     sample_time_series,
+    sampling_interval_from_t,
     sliding_windows,
+    slbp_sensitivity_windows,
 )
 from ..utils import io as uio
 from ..utils.device import resolve_device
@@ -78,6 +90,23 @@ __all__ = [
     "run_diffstg_evaluation_cache",
     "resume_mpv_sweep",
     "run_nsdiff_g_cache",
+    "slbp_sensitivity_cache_path",
+    "slbp_fig6_cache_path",
+    "slbp_fig6_pred_future_gx_cache_path",
+    "torch_data_preprocessing_like_slbp",
+    "summarize_slbp_sensitivity",
+    "summarize_slbp_sampling_for_fig6",
+    "summarize_slbp_gx_for_fig6",
+    "summarize_slbp_mpv_cache_for_fig5",
+    "run_slbp_sensitivity_cache",
+    "run_slbp_gx_cache_for_fig6",
+    "slbp_sensitivity_ews",
+    "slbp_sampling_analysis",
+    "slbp_gx_analysis",
+    "slbp_mpv_analysis",
+    "slbp_direct_model_cache_analysis",
+    "slbp_raw_window_variance",
+    "plot_single_model_check",
 ]
 
 
@@ -379,7 +408,10 @@ def batched_window_ensemble(model, windows_array: np.ndarray, pred_len: int,
         return outs, valid
 
     def drain(outs, valid):
-        outs = outs.cpu().numpy()[:, -pred_len:, :, :]
+        # C order, as the cache stores it and as JAX hands it back: numpy sums a
+        # strided array in another order, and the MPV of a fresh sweep must
+        # equal the MPV of the same ensembles read back from its cache
+        outs = outs[:, -pred_len:, :, :].contiguous().cpu().numpy()
         outs = outs.reshape(chunk, node, pred_len, F, outs.shape[-1])
         out.extend(outs[i] for i in range(valid))
 
@@ -699,6 +731,524 @@ def run_nsdiff_g_cache(
             raise IndexError(f"pred_dim {pred_dim} out of bounds for F={gx.shape[-1]}.")
     uio.save_tensor_list(g_list, cache_path)
     return g_list
+
+
+# ---------------------------------------------------------------------------
+# SLBP analyses
+# ---------------------------------------------------------------------------
+
+def slbp_fig6_cache_path(model_root, model_name, data_trend, sample_window_step=10,
+                         cache_subdir=None, kind="pred_future"):
+    cache_dir = _resolve_project_path(model_root) / "datas"
+    if cache_subdir:
+        cache_dir = cache_dir / cache_subdir
+    return cache_dir / f"{model_name}_{kind}_{data_trend}_{sample_window_step}.pt"
+
+
+def slbp_fig6_pred_future_gx_cache_path(model_root, model_name, data_trend,
+                                        sample_window_step=10, cache_subdir=None):
+    cache_dir = _resolve_project_path(model_root) / "datas"
+    if cache_subdir:
+        cache_dir = cache_dir / cache_subdir
+    return cache_dir / f"{model_name}_pred_future_{data_trend}_{sample_window_step}_gx.pt"
+
+
+def slbp_sensitivity_cache_path(model_root, model_name, data_trend, sample_window_step=10):
+    """The sensitivity sweep's cache: the sampling analysis's `pred_future`
+    cache with no subdirectory, so the two analyses share the file."""
+    return slbp_fig6_cache_path(model_root, model_name, data_trend, sample_window_step)
+
+
+def _legacy_single_underscore_model_name(model_name):
+    return str(model_name).replace("dataset__", "dataset_", 1)
+
+
+def torch_data_preprocessing_like_slbp(time_data, sampling_t, return_numpy=False):
+    """The time axis decimated by ``sampling_t`` (numpy, whatever
+    ``return_numpy`` says, as in the JAX package)."""
+    return np.asarray(time_data)[:: sampling_interval_from_t(sampling_t)]
+
+
+def _slbp_cache_elements_have_ndim(data_list, ndim):
+    return bool(data_list) and all(np.asarray(item).ndim == ndim for item in data_list)
+
+
+def _slbp_cache_elements_are_gx(data_list):
+    """gx caches hold [pred_len, F] (or [1, pred_len, F]) per window;
+    sampling caches [pred_len, F, n_z_samples]."""
+    return _slbp_cache_elements_have_ndim(data_list, 2) or (
+        bool(data_list)
+        and all(np.asarray(i).ndim == 3 and np.asarray(i).shape[0] == 1 for i in data_list)
+    )
+
+
+def _slbp_intrinsic_dimension(trajectories):
+    """How many principal components cover 80% of the variance of the
+    ensemble's trajectories [S, D]. float64 on the host: float32 can flip
+    the count where the cumulative share sits at the threshold."""
+    t = np.asarray(trajectories, np.float64)
+    if t.ndim != 2 or t.shape[0] < 2:
+        return np.nan
+    centered = t - t.mean(axis=0, keepdims=True)
+    cov = centered.T @ centered / max(t.shape[0] - 1, 1)
+    eig = np.sort(np.linalg.eigvalsh(cov))[::-1].clip(0)
+    total = eig.sum()
+    if total <= 0:
+        return np.nan
+    return int(np.argmax(np.cumsum(eig / total) >= 0.8) + 1)
+
+
+def summarize_slbp_sensitivity(pred_future_list, pred_datas, model=None, device=None, pred_dim=0):
+    """(MPV, prediction error) per window of a sampling cache, both of
+    feature ``pred_dim``. The MPV is taken of the cache as stored (scaled
+    space); the targets are scaled with the model's scaler to match."""
+    mpv_list, pred_error_list = [], []
+    for pf in pred_future_list:
+        pf = np.asarray(pf)
+        if pf.ndim != 3:
+            raise ValueError(
+                "SLBP sensitivity cache elements must have shape [pred_len, F, n_z_samples].")
+        if pred_dim >= pf.shape[1]:
+            raise IndexError(f"pred_dim {pred_dim} out of bounds for F={pf.shape[1]}.")
+        mpv_list.append(pf.var(axis=-1).mean(axis=0)[pred_dim])
+    for pf, pd in zip(pred_future_list, pred_datas):
+        pf, pd = np.asarray(pf), np.asarray(pd)
+        if getattr(model, "scaler", None) is not None:
+            pd = model.scaler_transform(pd)
+        err = np.abs(pf.mean(axis=-1) - pd).mean(axis=0)
+        pred_error_list.append(err[pred_dim])
+    return mpv_list, pred_error_list
+
+
+def summarize_slbp_sampling_for_fig6(pred_future_list, pred_dim=0):
+    """(MPV, intrinsic dimension) per window of a sampling cache."""
+    mpv_list, dim_list = [], []
+    for pf in pred_future_list:
+        pf = np.asarray(pf)
+        if pf.ndim != 3:
+            raise ValueError(
+                "SLBP sampling cache elements must have shape [pred_len, F, n_z_samples].")
+        if pred_dim >= pf.shape[1]:
+            raise IndexError(f"pred_dim {pred_dim} out of bounds for F={pf.shape[1]}.")
+        mpv_list.append(float(pf.var(axis=-1).mean(axis=0)[pred_dim]))
+        traj = pf.transpose(2, 0, 1).reshape(pf.shape[-1], -1)
+        dim_list.append(_slbp_intrinsic_dimension(traj))
+    return mpv_list, dim_list
+
+
+def summarize_slbp_gx_for_fig6(gx_list, pred_dim=0):
+    """gx-MPV per window: the horizon mean of gx[:, pred_dim]."""
+    out = []
+    for gx in gx_list:
+        gx = np.asarray(gx)
+        if gx.ndim == 3 and gx.shape[0] == 1:
+            gx = gx[0]
+        if gx.ndim != 2:
+            raise ValueError(
+                "SLBP gx cache elements must have shape [pred_len, F] or [1, pred_len, F].")
+        if pred_dim >= gx.shape[-1]:
+            raise IndexError(f"pred_dim {pred_dim} out of bounds for F={gx.shape[-1]}.")
+        out.append(float(gx[:, pred_dim].mean()))
+    return out
+
+
+def summarize_slbp_mpv_cache_for_fig5(data_list, pred_dim=0):
+    """(MPV, "sampling" or "gx") of a cache, told apart by its shape."""
+    if _slbp_cache_elements_have_ndim(data_list, 3):
+        mpv, _dim = summarize_slbp_sampling_for_fig6(data_list, pred_dim=pred_dim)
+        return mpv, "sampling"
+    if _slbp_cache_elements_are_gx(data_list):
+        return summarize_slbp_gx_for_fig6(data_list, pred_dim=pred_dim), "gx"
+    shape = tuple(np.asarray(data_list[0]).shape) if data_list else None
+    raise ValueError(f"Unsupported SLBP MPV cache element shape: {shape}")
+
+
+def run_slbp_sensitivity_cache(model, input_windows, cache_path, device=None,
+                               force_recompute=False, max_windows=None, chunk_windows=16):
+    """SLBP sampling cache: a list of [pred_len, F, n_z_samples], one per
+    input window [n, W, F] (``batched_window_ensemble`` with one node). An
+    unreadable cache is recomputed."""
+    cache_path = Path(cache_path)
+    if cache_path.exists() and not force_recompute:
+        try:
+            return uio.load_tensor_list(cache_path)
+        except Exception as exc:
+            print(f"warning: failed to read cache {cache_path}, recomputing ({exc})")
+    arr = np.asarray(input_windows)[:, None, :, :]  # [n, 1(Node), W, F]
+    out = batched_window_ensemble(model, arr, model.pred_len, chunk_windows=chunk_windows,
+                                  max_windows=max_windows, device=device)
+    out = [pf[0] for pf in out]  # strip the Node axis -> [pred_len, F, S]
+    uio.save_tensor_list(out, cache_path)
+    return out
+
+
+def run_slbp_gx_cache_for_fig6(model, input_windows, cache_path, device=None, pred_dim=0,
+                               force_recompute=False, max_windows=None):
+    """SLBP gx cache: a list of [pred_len, F], one per input window. An
+    existing cache is returned only when its elements are gx-shaped."""
+    cache_path = Path(cache_path)
+    if cache_path.exists() and not force_recompute:
+        gx_list = uio.load_tensor_list(cache_path)
+        if _slbp_cache_elements_are_gx(gx_list):
+            return gx_list
+    if not getattr(model, "has_g", False):
+        raise ValueError("model does not provide cond_pred_model_g for gx generation.")
+    arr = np.asarray(input_windows)[:, None, :, :]
+    if max_windows is not None:
+        arr = arr[:max_windows]
+    g_list = [g[0] for g in batched_gx(model, arr, device=device)]
+    for gx in g_list:
+        if pred_dim >= gx.shape[-1]:
+            raise IndexError(f"pred_dim {pred_dim} out of bounds for F={gx.shape[-1]}.")
+    uio.save_tensor_list(g_list, cache_path)
+    return g_list
+
+
+def _slbp_dataset_config(model_root, model_name, windows=None, pred_len=None, sampling_t=None):
+    """windows / pred_len / sampling_t: the caller's, else the model yaml's,
+    else 200 / 200 / 100."""
+    import yaml
+
+    config_path = _resolve_project_path(model_root) / "models" / f"{model_name}.yaml"
+    method_config = None
+    if config_path.exists():
+        with open(config_path, "r", encoding="utf-8") as f:
+            method_config = yaml.safe_load(f)
+    dataset_config = method_config.get("dataset", {}) if method_config else {}
+    return {
+        "windows": windows if windows is not None else dataset_config.get("windows", 200),
+        "pred_len": pred_len if pred_len is not None else dataset_config.get("pred_len", 200),
+        "sampling_t": (sampling_t if sampling_t is not None
+                       else dataset_config.get("sampling_t", 100)),
+        "method_config": method_config,
+    }
+
+
+def slbp_sensitivity_ews(model_root, model_name, torch_time_series, time_data,
+                         data_trend="increase", pred_dim=0, sample_window_step=10,
+                         infer_params=None, force_recompute=False, max_windows=None,
+                         device=None):
+    """Sampling MPV and prediction error per window of an SLBP trajectory
+    [T, F] under ``<model_root>/models/<model_name>``, through the cache
+    ``slbp_sensitivity_cache_path``. ``device=None`` is the card."""
+    model_root = _resolve_project_path(model_root)
+    model, method_config, loaded_net_param = load_sensitivity_model(
+        model_root, model_name, device=device, infer_params=infer_params)
+    dataset_config = method_config.get("dataset", {})
+    windows = dataset_config["windows"]
+    pred_len = dataset_config["pred_len"]
+    sampling_t = dataset_config["sampling_t"]
+
+    input_windows, pred_windows, time_points = slbp_sensitivity_windows(
+        np.asarray(torch_time_series), time_data, windows, pred_len, sampling_t,
+        sample_window_step)
+    cache_path = slbp_sensitivity_cache_path(model_root, model_name, data_trend, sample_window_step)
+    pred_future_list = run_slbp_sensitivity_cache(
+        model, input_windows, cache_path, device=device,
+        force_recompute=force_recompute, max_windows=max_windows)
+    mpv_list, prediction_error_list = summarize_slbp_sensitivity(
+        pred_future_list, pred_windows, model=model, device=device, pred_dim=pred_dim)
+    return {
+        "time_points": time_points,
+        "mpv": mpv_list,
+        "prediction_error": prediction_error_list,
+        "pred_future_list": pred_future_list,
+        "cache_path": str(cache_path),
+        "windows": windows,
+        "pred_len": pred_len,
+        "sampling_t": sampling_t,
+        "sample_window_step": sample_window_step,
+        "model_root": str(model_root),
+        "model_name": model_name,
+        "loaded_net_param": loaded_net_param,
+    }
+
+
+def slbp_sampling_analysis(model_root, model_name, torch_time_series, time_data,
+                           data_trend="increase", pred_dim=0, sample_window_step=10,
+                           cache_subdir=None, windows=None, pred_len=None, sampling_t=None,
+                           infer_params=None, force_recompute=False, max_windows=None,
+                           device=None, allow_unavailable=True):
+    """Sampling MPV and intrinsic dimension per window. The `pred_future`
+    cache is used when it holds sampling ensembles, else the
+    `sampling_pred_future` one; a sweep writes whichever is free. With
+    ``allow_unavailable`` (the default, as in the JAX package) any failure
+    returns ``available: False`` with the reason instead of raising."""
+    cfg = _slbp_dataset_config(model_root, model_name, windows, pred_len, sampling_t)
+    input_windows, _pred, time_points = slbp_sensitivity_windows(
+        np.asarray(torch_time_series), time_data, cfg["windows"], cfg["pred_len"],
+        cfg["sampling_t"], sample_window_step)
+    cache_path = slbp_fig6_cache_path(
+        model_root, model_name, data_trend, sample_window_step, cache_subdir, "pred_future")
+    sampling_cache_path = slbp_fig6_cache_path(
+        model_root, model_name, data_trend, sample_window_step, cache_subdir,
+        "sampling_pred_future")
+    try:
+        active_cache_path = cache_path
+        pred_future_list = None
+        if not force_recompute:
+            if cache_path.exists():
+                candidate = uio.load_tensor_list(cache_path)
+                if _slbp_cache_elements_have_ndim(candidate, 3):
+                    pred_future_list = candidate
+                else:
+                    active_cache_path = sampling_cache_path
+            if pred_future_list is None and sampling_cache_path.exists():
+                candidate = uio.load_tensor_list(sampling_cache_path)
+                if _slbp_cache_elements_have_ndim(candidate, 3):
+                    pred_future_list = candidate
+                    active_cache_path = sampling_cache_path
+                else:
+                    raise ValueError("sampling cache exists but is not "
+                                     f"[pred_len, F, n_z_samples]: {sampling_cache_path}")
+        if pred_future_list is None:
+            if cache_path.exists() and active_cache_path == cache_path:
+                active_cache_path = sampling_cache_path
+            model, _mc, _np = load_sensitivity_model(
+                model_root, model_name, device=device, infer_params=infer_params)
+            pred_future_list = run_slbp_sensitivity_cache(
+                model, input_windows, active_cache_path, device=device,
+                force_recompute=force_recompute, max_windows=max_windows)
+            if not _slbp_cache_elements_have_ndim(pred_future_list, 3):
+                raise ValueError("generated sampling cache is not "
+                                 f"[pred_len, F, n_z_samples]: {active_cache_path}")
+        mpv, intrinsic_dimension = summarize_slbp_sampling_for_fig6(pred_future_list, pred_dim)
+        return {
+            "available": True,
+            "time_points": time_points[: len(mpv)],
+            "mpv": mpv,
+            "intrinsic_dimension": intrinsic_dimension,
+            "pred_future_list": pred_future_list,
+            "cache_path": str(active_cache_path),
+            "windows": cfg["windows"],
+            "pred_len": cfg["pred_len"],
+            "sampling_t": cfg["sampling_t"],
+            "sample_window_step": sample_window_step,
+            "reason": "",
+        }
+    except Exception as exc:
+        if not allow_unavailable:
+            raise
+        return {
+            "available": False,
+            "time_points": time_points,
+            "mpv": [],
+            "intrinsic_dimension": [],
+            "pred_future_list": None,
+            "cache_path": str(sampling_cache_path if cache_path.exists() else cache_path),
+            "windows": cfg["windows"],
+            "pred_len": cfg["pred_len"],
+            "sampling_t": cfg["sampling_t"],
+            "sample_window_step": sample_window_step,
+            "reason": str(exc),
+        }
+
+
+def slbp_gx_analysis(model_root, model_name, torch_time_series, time_data,
+                     data_trend="increase", pred_dim=0, sample_window_step=10,
+                     cache_subdir=None, windows=None, pred_len=None, sampling_t=None,
+                     infer_params=None, force_recompute=False, max_windows=None, device=None):
+    """gx-MPV per window. Without ``force_recompute`` the first of four
+    caches that exists is read: `pred_future_..._gx`, `gx_...`, then
+    `pred_future_...` under the model's name and under its legacy
+    single-underscore name; the last two serve only when they hold gx (told
+    by shape), else gx is computed into the first."""
+    cfg = _slbp_dataset_config(model_root, model_name, windows, pred_len, sampling_t)
+    input_windows, _pred, time_points = slbp_sensitivity_windows(
+        np.asarray(torch_time_series), time_data, cfg["windows"], cfg["pred_len"],
+        cfg["sampling_t"], sample_window_step)
+    gx_cache_path = slbp_fig6_pred_future_gx_cache_path(
+        model_root, model_name, data_trend, sample_window_step, cache_subdir)
+    old_gx_cache_path = slbp_fig6_cache_path(
+        model_root, model_name, data_trend, sample_window_step, cache_subdir, "gx")
+    legacy_cache_path = slbp_fig6_cache_path(
+        model_root, model_name, data_trend, sample_window_step, cache_subdir, "pred_future")
+    legacy_name_cache_path = slbp_fig6_cache_path(
+        model_root, _legacy_single_underscore_model_name(model_name), data_trend,
+        sample_window_step, cache_subdir, "pred_future")
+
+    def _generate():
+        model, _mc, _np = load_sensitivity_model(
+            model_root, model_name, device=device, infer_params=infer_params)
+        return run_slbp_gx_cache_for_fig6(
+            model, input_windows, gx_cache_path, device=device, pred_dim=pred_dim,
+            force_recompute=force_recompute, max_windows=max_windows)
+
+    if gx_cache_path.exists() and not force_recompute:
+        gx_list = uio.load_tensor_list(gx_cache_path)
+    elif old_gx_cache_path.exists() and not force_recompute:
+        gx_list = uio.load_tensor_list(old_gx_cache_path)
+        if not _slbp_cache_elements_are_gx(gx_list):
+            raise ValueError(f"gx cache exists but is not a gx cache: {old_gx_cache_path}")
+        gx_cache_path = old_gx_cache_path
+    elif legacy_cache_path.exists() and not force_recompute:
+        gx_list = uio.load_tensor_list(legacy_cache_path)
+        if _slbp_cache_elements_are_gx(gx_list):
+            gx_cache_path = legacy_cache_path
+        else:
+            gx_list = _generate()
+    elif legacy_name_cache_path.exists() and not force_recompute:
+        gx_list = uio.load_tensor_list(legacy_name_cache_path)
+        if _slbp_cache_elements_are_gx(gx_list):
+            gx_cache_path = legacy_name_cache_path
+        else:
+            gx_list = _generate()
+    else:
+        gx_list = _generate()
+
+    gx_mpv = summarize_slbp_gx_for_fig6(gx_list, pred_dim=pred_dim)
+    return {
+        "time_points": time_points[: len(gx_mpv)],
+        "gx_mpv": gx_mpv,
+        "gx_list": gx_list,
+        "cache_path": str(gx_cache_path),
+        "windows": cfg["windows"],
+        "pred_len": cfg["pred_len"],
+        "sampling_t": cfg["sampling_t"],
+        "sample_window_step": sample_window_step,
+    }
+
+
+def slbp_mpv_analysis(model_root, model_name, torch_time_series, time_data, cache_path,
+                      pred_dim=0, sample_window_step=10, windows=None, pred_len=None,
+                      sampling_t=None, infer_params=None, force_recompute=False,
+                      max_windows=None, device=None):
+    """MPV from an arbitrary cache path, sampling or gx by shape; an
+    existing cache gives the window step it was written with (inferred from
+    its length), a missing one is swept by sampling."""
+    cfg = _slbp_dataset_config(model_root, model_name, windows, pred_len, sampling_t)
+    cache_path = _resolve_project_path(cache_path)
+    sampled_time = torch_data_preprocessing_like_slbp(time_data, cfg["sampling_t"])
+
+    if cache_path.exists() and not force_recompute:
+        data_list = uio.load_tensor_list(cache_path)
+        inferred_step = infer_sample_window_step_from_cache(
+            len(sampled_time), cfg["windows"], len(data_list), sample_window_step)
+        mpv, source = summarize_slbp_mpv_cache_for_fig5(data_list, pred_dim=pred_dim)
+        return {
+            "time_points": sampled_time[cfg["windows"] - 1 :: inferred_step][: len(mpv)],
+            "mpv": mpv,
+            "pred_future_list": data_list,
+            "cache_path": str(cache_path),
+            "windows": cfg["windows"],
+            "pred_len": cfg["pred_len"],
+            "sampling_t": cfg["sampling_t"],
+            "sample_window_step": inferred_step,
+            "uncertainty_source": source,
+        }
+
+    model, _mc, _np = load_sensitivity_model(
+        model_root, model_name, device=device, infer_params=infer_params)
+    input_windows, _pred, time_points = slbp_sensitivity_windows(
+        np.asarray(torch_time_series), time_data, cfg["windows"], cfg["pred_len"],
+        cfg["sampling_t"], sample_window_step)
+    pred_future_list = run_slbp_sensitivity_cache(
+        model, input_windows, cache_path, device=device,
+        force_recompute=force_recompute, max_windows=max_windows)
+    mpv, source = summarize_slbp_mpv_cache_for_fig5(pred_future_list, pred_dim=pred_dim)
+    return {
+        "time_points": time_points[: len(mpv)],
+        "mpv": mpv,
+        "pred_future_list": pred_future_list,
+        "cache_path": str(cache_path),
+        "windows": cfg["windows"],
+        "pred_len": cfg["pred_len"],
+        "sampling_t": cfg["sampling_t"],
+        "sample_window_step": sample_window_step,
+        "uncertainty_source": source,
+    }
+
+
+def slbp_direct_model_cache_analysis(model_save_file, torch_time_series, time_data, cache_path,
+                                     pred_dim=0, sample_window_step=10, cache_kind="auto",
+                                     infer_params=None, force_recompute=False, max_windows=None,
+                                     device=None, compute_prediction_error=False):
+    """MPV from a checkpoint directory and an explicit cache path. A missing
+    cache is swept as ``cache_kind`` says ("gx" or "sampling"; "auto" then
+    raises). ``compute_prediction_error`` needs a sampling cache."""
+    method_config = read_model_config(model_save_file)
+    dataset_cfg = method_config.get("dataset", {})
+    net_cfg = method_config.get("net", {})
+    windows = int(dataset_cfg.get("windows", net_cfg.get("windows", 200)))
+    pred_len = int(dataset_cfg.get("pred_len", net_cfg.get("pred_len", 200)))
+    sampling_t = int(dataset_cfg.get("sampling_t", 100))
+    cache_path = _resolve_project_path(cache_path)
+    sampled_time = torch_data_preprocessing_like_slbp(time_data, sampling_t)
+
+    model = None
+    if cache_path.exists() and not force_recompute:
+        data_list = uio.load_tensor_list(cache_path)
+    else:
+        if cache_kind not in {"gx", "sampling"}:
+            raise ValueError("cache_kind must be 'gx' or 'sampling' when cache is missing.")
+        model, _np = load_model_from_dir(model_save_file, device=device,
+                                         infer_params=infer_params, method_config=method_config)
+        input_windows, _pred, _tp = slbp_sensitivity_windows(
+            np.asarray(torch_time_series), time_data, windows, pred_len, sampling_t,
+            sample_window_step)
+        if cache_kind == "gx":
+            data_list = run_slbp_gx_cache_for_fig6(
+                model, input_windows, cache_path, device=device, pred_dim=pred_dim,
+                force_recompute=force_recompute, max_windows=max_windows)
+        else:
+            data_list = run_slbp_sensitivity_cache(
+                model, input_windows, cache_path, device=device,
+                force_recompute=force_recompute, max_windows=max_windows)
+    mpv, source = summarize_slbp_mpv_cache_for_fig5(data_list, pred_dim=pred_dim)
+
+    inferred_step = infer_sample_window_step_from_cache(
+        len(sampled_time), windows, len(data_list), sample_window_step)
+    result = {
+        "time_points": sampled_time[windows - 1 :: inferred_step][: len(mpv)],
+        "mpv": mpv,
+        "pred_future_list": data_list,
+        "cache_path": str(cache_path),
+        "windows": windows,
+        "pred_len": pred_len,
+        "sampling_t": sampling_t,
+        "sample_window_step": inferred_step,
+        "uncertainty_source": source,
+    }
+    if compute_prediction_error:
+        if source != "sampling":
+            raise ValueError(f"prediction_error requires a sampling cache, got '{source}'.")
+        if model is None:
+            model, _np = load_model_from_dir(model_save_file, device=device,
+                                             infer_params=infer_params,
+                                             method_config=method_config)
+        _inp, pred_windows, _tp = slbp_sensitivity_windows(
+            np.asarray(torch_time_series), time_data, windows, pred_len, sampling_t,
+            inferred_step)
+        _mpv, prediction_error = summarize_slbp_sensitivity(
+            data_list, pred_windows[: len(data_list)], model=model, device=device,
+            pred_dim=pred_dim)
+        result["prediction_error"] = prediction_error
+    return result
+
+
+def slbp_raw_window_variance(torch_time_series, time_data, windows=200, sampling_t=100,
+                             sample_window_step=10, pred_dim=0, device=None):
+    """The raw-series control: the float32 population variance of feature
+    ``pred_dim`` over the same strided windows, on ``device`` (None is the
+    card)."""
+    series = np.asarray(torch_time_series)
+    sampled = series[:: sampling_interval_from_t(sampling_t)]
+    sampled_time = torch_data_preprocessing_like_slbp(time_data, sampling_t)
+    if sampled.ndim != 2:
+        raise ValueError("SLBP raw series must have shape [T, F].")
+    if pred_dim >= sampled.shape[1]:
+        raise IndexError(f"pred_dim {pred_dim} out of bounds for F={sampled.shape[1]}.")
+    x = torch.as_tensor(np.ascontiguousarray(sampled[:, pred_dim], dtype=np.float32),
+                        device=resolve_device(device))
+    variances = window_variance_1d(x, windows, sample_window_step).cpu().numpy()
+    time_points = sampled_time[windows - 1 :: sample_window_step][: len(variances)]
+    return {
+        "time_points": time_points,
+        "variance": variances,
+        "windows": windows,
+        "sampling_t": sampling_t,
+        "sample_window_step": sample_window_step,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1034,3 +1584,46 @@ def uncertainty_ews(
         raise ValueError("uncertainty_method='gx' requires a task_model containing 'NsDiff' "
                          "and a loaded model with cond_pred_model_g, or an existing _gx cache.")
     return result
+
+
+def plot_single_model_check(result, pred_dim=0, title=None, save_path=None, axs=None):
+    """Two panels of an ``uncertainty_ews`` result: the raw state (the node
+    mean for network dynamics) and the per-window MPV. matplotlib is
+    imported here, not with the module."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    owns_figure = axs is None
+    if axs is None:
+        fig, axs = plt.subplots(2, 1, figsize=(6.2, 4.2), gridspec_kw={"hspace": 0.0})
+    else:
+        axs = np.asarray(axs, dtype=object).ravel()
+        if len(axs) != 2:
+            raise ValueError("plot_single_model_check expects 2 axes.")
+        fig = axs[0].figure
+
+    series = np.asarray(result["torch_time_series"])
+    time_data = np.asarray(result["time_data"])
+    if result.get("dynamic_type") in NETWORK_DYNAMICS:
+        y = series[:, :, 0].mean(axis=0)
+    else:
+        y = series[0, :, pred_dim]
+
+    axs[0].plot(time_data[: len(y)], y, color="#2F5597", linewidth=1.4)
+    axs[0].set_ylabel("State")
+    if title:
+        axs[0].set_title(title)
+    axs[1].plot(result["time_points"][: len(result["ews"])], result["ews"], ".",
+                color="#C44E52", markersize=3)
+    axs[1].set_ylabel("Uncertainty")
+    axs[1].set_xlabel("Time")
+    axs[1].sharex(axs[0])
+    for ax in axs:
+        ax.tick_params(labelsize=9)
+    if owns_figure:
+        fig.tight_layout()
+    if save_path is not None:
+        fig.savefig(save_path, dpi=300, bbox_inches="tight")
+    return fig

@@ -1,9 +1,10 @@
 """Sliding-window construction, decimation and cache-step inference (numpy,
 host side).
 
-Counterpart of ``upgdm_tpu/ops/windows.py`` (without the SLBP sensitivity
-windows): ``sliding_windows`` stacks every rolling window into one array so
-the MPV sweep batches windows on the device; ``sample_time_series``
+Counterpart of ``upgdm_tpu/ops/windows.py``: ``sliding_windows`` stacks
+every rolling window into one array so the MPV sweep batches windows on the
+device; ``slbp_sensitivity_windows`` builds the SLBP analyses' input windows
+with their prediction targets; ``sample_time_series``
 decimates by the physical sampling period; ``normalize_time_series`` brings
 stored records to the canonical ``[Node, T, F]`` layout;
 ``infer_sample_window_step_from_cache`` recovers the stride a cache was
@@ -32,6 +33,7 @@ __all__ = [
     "build_sliding_windows_compat",
     "sliding_window_count",
     "infer_sample_window_step_from_cache",
+    "slbp_sensitivity_windows",
 ]
 
 
@@ -132,3 +134,36 @@ def infer_sample_window_step_from_cache(sampled_length: int, windows: int, cache
     if not candidates:
         return fallback_step
     return min(candidates, key=lambda step: (abs(step - fallback_step), -step))
+
+
+def slbp_sensitivity_windows(series: np.ndarray, time_data, windows: int, pred_len: int,
+                             sampling_t, sample_window_step: int
+                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """SLBP input windows with their prediction targets.
+
+    series: [T, F] (2-D), decimated by ``sampling_t``. Returns (input_windows
+    [n, windows, F], pred_windows [m, pred_len, F], time_points [n]). The
+    prediction region starts at ``windows`` (one step past the end of the
+    first input window only), so m < n: the JAX package's convention, kept
+    as it is; a region shorter than ``pred_len`` gives [0, pred_len, F].
+    """
+    series = np.asarray(series)
+    if series.ndim != 2:
+        raise ValueError("SLBP series must have shape [T, F].")
+    interval = sampling_interval_from_t(sampling_t)
+    sampled = series[::interval]
+    sampled_time = np.asarray(time_data)[::interval]
+
+    time_points = sampled_time[windows - 1 :: sample_window_step]
+    n = sliding_window_count(sampled.shape[0], windows, sample_window_step)
+    idx = (np.arange(n) * sample_window_step)[:, None] + np.arange(windows)[None, :]
+    input_windows = sampled[idx]  # [n, windows, F]
+
+    pred_region = sampled[windows:, :]
+    if pred_region.shape[0] >= pred_len:
+        m = sliding_window_count(pred_region.shape[0], pred_len, sample_window_step)
+        pidx = (np.arange(m) * sample_window_step)[:, None] + np.arange(pred_len)[None, :]
+        pred_windows = pred_region[pidx]
+    else:
+        pred_windows = np.zeros((0, pred_len, series.shape[1]), dtype=sampled.dtype)
+    return input_windows, pred_windows, time_points[:n]
