@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--kernels]
 
-Builds the port's three CUDA kernels from ``upgdm_tpu_torch/csrc/`` (into
+Builds the port's four CUDA kernels from ``upgdm_tpu_torch/csrc/`` (into
 ``build/kernels/``) and fails on a register spill in the tensor-core kernels,
 holds each kernel against its plain PyTorch twin on the card (K1 and K3 over
 ragged row counts, feature widths 1, 2 and 4, edge-case rows and, element by
@@ -57,8 +57,15 @@ the CPU, K1 at that shape against its twin, and the demo's scan through the
 facade held to ``demo_artifacts/summary.json`` over two seeds; and the
 figure layer's loaders on the card (fig1 and ``mpv_collapse`` over
 ``demo_fig1``, fig4-fig9 over the tracked SLBP model and trajectory under
-every name they read), rendered when matplotlib is installed. Every phase
-that fails exits non-zero. Progress goes to
+every name they read), rendered when matplotlib is installed. Last, data
+generation (``datagen``): K4, the Euler-Maruyama segment kernel, against its
+twin over the four systems at 12 to 300 nodes and two segmentations, timed;
+the JAX package's default SLBP corpus (4 x 10,010,000 steps); the demo corpus
+over five seeds, its transition held to ``demo_artifacts/summary.json``; one
+generated trajectory through the facade with the demo model (K1); the network
+CLI's defaults on the tracked 100-node graph; a generated SIS record through
+the facade with the trained ``demo_fig1`` model; the graph library and the
+Bury corpus on the host. Every phase that fails exits non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
 last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
 kernel phases (build, K1, K2, K3 with their times): the short loop for work on
@@ -1875,6 +1882,347 @@ def figures_phase(smi_line, zero_counts, kernel_counts):
     return sum(v for k, v in launches.items() if not k.startswith("render_"))
 
 
+# -- data generation on the card: K4 and the data layer (phase `datagen`) ------------
+# K4 against its twin on the same Philox normals, element by element, over 1,000
+# steps: SLBP bit for bit (the kernel rounds the twin's operations one by one in
+# the same order, and both take the normals' Box-Muller transform in float64);
+# the networks within K4_REL of the run's largest |state|: the product A v sums by
+# FMA in node order in the kernel and in the BLAS's order in the twin (a few
+# roundings of a state a step), and the neuronal sigmoid's expf is not PyTorch's
+# exp; on these stable runs a step's difference decays instead of growing
+# (measured on the H100: at most 5 roundings, 4.9e-7 of the scale). 2^-18 is 64
+# roundings.
+K4_REL = 2.0 ** -18
+K4_STEPS = 1000
+# the control's ramp, the initial states and the parameters of the checks: SIS
+# with d 0.1 on its endemic branch at every N (eps lambda_max > d: near the
+# disease-free state a state pushed below 0 runs away, which is why the
+# simulators retry) and every Euler step stable (eps deg_max dt < 2; the tracked
+# 100-node graph has a hub of degree 63)
+K4_RAMP = {"SIS": (0.1, 0.2), "biomass": (0.0, 2.0), "neuronal": (0.0, 0.4),
+           "SLBP": (0.0, 2.6)}
+K4_INIT = {"SIS": (0.2, 1.0), "biomass": (5.0, 10.0), "neuronal": (0.0, 3.0)}
+K4_PARAMS = {"biomass": {"r": 0.7, "k": 10.0, "d": 0.05}, "SIS": {"d": 0.1},
+             "neuronal": {"tau": 2.0, "mu": 1.5}}
+GRAPH_DIR = REPO / "dataset/train_dataset_graph"
+NET_GRAPH = "barabasi_albert_100_0"  # the tracked 100-node graph (demo_n100's too)
+# the demo corpus (examples/slbp_demo.py:37, 58-61) over DEMO_SEEDS seeds; its
+# transition (every 1000th bream state) against demo_artifacts/summary.json's,
+# which is one draw (the JAX package's seed 0): the record must lie in the 99%
+# prediction interval of the seeds, mean +- t(0.995, n-1) s sqrt(1 + 1/n), widened
+# by the locator's grid (1000 steps of 0.1): the noise moves an SLBP
+# transition by thousands of time units from seed to seed.
+DEMO_TT, DEMO_SEEDS, DG_GRID = 2e5, range(8), 1000 * 0.1
+# examples/fig1_demo.py's SIS physics and settings (total 40, burn 20, dt 0.1, seed 3)
+FIG1_SIS = dict(control_range=(1e-4, 0.5), base_params={"d": 0.5}, eta=1e-4, total_time=40.0,
+                burn_time=20.0, dt=0.1, seed=3)
+
+
+def datagen_phase(smi_line, zero_counts, kernel_counts, bound):
+    """The data layer on the card (``datagen``): K4 against its twin (every
+    system, N 12/30/100/300, both noise modes, save_every 1 and 10, noise-free,
+    two segmentations) and the simulators against their CPU runs, K4 timed
+    against its bound; the JAX package's default SLBP
+    corpus (4 x 10,010,000 steps); the demo corpus over five seeds, its
+    transition held to ``demo_artifacts/summary.json``; one of those
+    trajectories through the facade with the demo model (K1); the network CLI's
+    defaults on the tracked 100-node graph for the three systems; a generated
+    SIS record through the facade with the trained ``demo_fig1`` model; the
+    graph library and the Bury corpus on the host. Returns (K1 launches, the
+    kernels line's K4 row)."""
+    import contextlib
+    import io
+    import random
+    import shutil
+
+    import numpy as np
+    import torch
+    from scipy.stats import t as student_t
+
+    from upgdm_tpu_torch.data import bury_sim, generate, graphs, sde
+    from upgdm_tpu_torch.eval import uncertainty as U
+    from upgdm_tpu_torch.figures.mpv_collapse import locate_transition, metric_row_from_mpv
+    from upgdm_tpu_torch.ops.graph import graphml_to_adjacency
+    from upgdm_tpu_torch.ops.kernels.roofline import k4_work
+    from upgdm_tpu_torch.ops.kernels.sde_scan import STREAM_RUN, sde_scan, sde_scan_reference
+    from upgdm_tpu_torch.utils.io import load_pt, save_pt
+
+    dev = torch.device("cuda")
+    out, launches = {}, {}
+    t_phase = time.perf_counter()
+
+    def counted(name, fn):
+        zero_counts()
+        t, r = host_s(fn)
+        launches[name] = kernel_counts() + (sde_scan.launches,)
+        out[f"{name}_s"] = t
+        return r
+
+    # -- K4 against its twin ------------------------------------------------------
+    rng = np.random.default_rng(0)
+    random.seed(0)
+    adjs = {12: graphs.gen_graph("barabasi_albert", 12, 12, rng=random.Random(0)).adj,
+            30: graphml_to_adjacency(GRAPH_DIR / "barabasi_albert_30_0.graphml").adj,
+            100: graphml_to_adjacency(GRAPH_DIR / f"{NET_GRAPH}.graphml").adj,
+            300: graphs.generate_network("BA", 300, m=3, seed=0).adj}
+    slbp = sde.SystemDrift("SLBP")
+    sig_slbp = np.array([(2e-5) ** 0.5, (2e-6) ** 0.5], np.float32)
+    checks = {}
+
+    def check(name, drift, y0, sig, save_every, noise, steps=K4_STEPS):
+        d = drift.to(dev)
+        eps = torch.linspace(*K4_RAMP[drift.system], steps, device=dev)
+        args = (d, torch.as_tensor(y0, device=dev), eps, torch.as_tensor(sig, device=dev), 0.1,
+                7, STREAM_RUN, 0, save_every, noise)
+        y_k, ys_k = sde_scan(*args)
+        y_t, ys_t = sde_scan_reference(*args)
+        err = max((ys_k - ys_t).abs().max().item(), (y_k - y_t).abs().max().item())
+        scale = ys_t.abs().max().item()
+        ok = (ys_k.shape == (steps // save_every, len(y0)) and bool(torch.isfinite(ys_k).all())
+              and (torch.equal(ys_k, ys_t) if drift.system == "SLBP" else err <= K4_REL * scale))
+        checks[name] = {"max_abs_err": err, "scale": scale, "bit_equal": bool(torch.equal(ys_k, ys_t))}
+        require(ok, "datagen", f"K4 {name}: off its twin by {err} (scale {scale}, bar "
+                f"{'bit for bit' if drift.system == 'SLBP' else K4_REL})")
+
+    y_slbp = np.array([30.0, 2.0], np.float32)
+    for noise in ("additive", "scale_mixture"):
+        for se in (1, 10):
+            check(f"SLBP_{noise}_save{se}", slbp, y_slbp, sig_slbp, se, noise)
+    check("SLBP_noise_free", slbp, y_slbp, 0 * sig_slbp, 1, "additive")
+    for N, adj in adjs.items():
+        for system, bp in K4_PARAMS.items():
+            drift = sde.SystemDrift(system, adj, **bp)
+            y0 = rng.uniform(*K4_INIT[system], N).astype(np.float32)
+            check(f"{system}_N{N}", drift, y0, np.full(N, 0.01, np.float32), 1, "scale_mixture")
+            if N == 100:
+                check(f"{system}_N{N}_noise_free", drift, y0, np.zeros(N, np.float32), 1,
+                      "scale_mixture")
+                check(f"{system}_N{N}_additive_save10", drift, y0, np.full(N, 0.01, np.float32),
+                      10, "additive")
+    # two segmentations of one trajectory: equal bit for bit
+    seg_equal = {}
+    for system, N in (("SLBP", 2), ("SIS", 100), ("neuronal", 300)):
+        d = (slbp if system == "SLBP" else sde.SystemDrift(system, adjs[N], **K4_PARAMS[system])).to(dev)
+        noise = "additive" if system == "SLBP" else "scale_mixture"
+        y0 = torch.as_tensor(rng.uniform(0.2, 1.0, N).astype(np.float32), device=dev)
+        sg = torch.full((N,), 0.01, device=dev)
+        eps = torch.linspace(*K4_RAMP[system], 3000, device=dev)
+        y_one, ys_one = sde_scan(d, y0, eps, sg, 0.1, 5, STREAM_RUN, 0, 1, noise)
+        y, parts = y0, []
+        for a, b in ((0, 1000), (1000, 1777), (1777, 3000)):
+            y, ys = sde_scan(d, y, eps[a:b], sg, 0.1, 5, STREAM_RUN, a, 1, noise)
+            parts.append(ys)
+        cat = torch.cat(parts)
+        diff = (cat != ys_one).any(dim=1).nonzero()
+        seg_equal[system] = {"equal": bool(torch.equal(cat, ys_one) and torch.equal(y, y_one)),
+                             "first_step_apart": int(diff[0]) if len(diff) else None}
+    require(all(v["equal"] for v in seg_equal.values()), "datagen",
+            f"K4: two segmentations of one trajectory differ: {seg_equal}")
+    # the simulators on the card against the same calls on the CPU (the twin, the
+    # same Philox stream): SLBP bit for bit, a network within K4's bar
+    slbp_kw = dict(total_time=300.0, burn_time=20.0, seed=3)
+    on_card = sde.simulate_slbp(device="cuda", **slbp_kw)["ys_dynamic"]
+    on_cpu = sde.simulate_slbp(device="cpu", **slbp_kw)["ys_dynamic"]
+    net_kw = dict(trend="decrease", control_range=(0.0, 0.4), base_params=K4_PARAMS["neuronal"],
+                  eta=0.01, total_time=40.0, burn_time=5.0, seed=2)
+    net_card = sde.simulate_network_system("neuronal", adjs[30], device="cuda", **net_kw)
+    net_cpu = sde.simulate_network_system("neuronal", adjs[30], device="cpu", **net_kw)
+    card_vs_cpu = {"SLBP_bit_equal": bool(np.array_equal(on_card, on_cpu)),
+                   "neuronal_N30_max_abs": float(np.abs(net_card["ys_dynamic"]
+                                                        - net_cpu["ys_dynamic"]).max())}
+    require(card_vs_cpu["SLBP_bit_equal"] and card_vs_cpu["neuronal_N30_max_abs"]
+            <= K4_REL * np.abs(net_cpu["ys_dynamic"]).max(), "datagen",
+            f"the simulators on the card against the CPU: {card_vs_cpu}")
+    k4_err = max(c["max_abs_err"] for c in checks.values())
+
+    # -- K4's time: the default corpus's burn-in launch (SLBP, 10,000 steps) against
+    # its twin and the bound; a 1,000,000-step segment; a network step at N 100
+    def k4_args(drift, N, steps, noise, sig):
+        eps = torch.linspace(*K4_RAMP[drift.system], steps, device=dev)
+        return (drift.to(dev), torch.rand(N, device=dev) * 0.8 + 0.2, eps, torch.full((N,), sig, device=dev),
+                0.1, 1, STREAM_RUN, 0, 1, noise)
+
+    burn = k4_args(slbp, 2, 10_000, "additive", 1e-3)
+    k4_ms = cuda_ms(lambda: sde_scan(*burn))
+    k4_plain = cuda_ms(lambda: sde_scan_reference(*burn), reps=1, warmup=0)
+    k4_bound = bound(k4_work(10_000, 2), "float32")
+    seg = k4_args(slbp, 2, 1_000_000, "additive", 1e-3)
+    seg_ms = cuda_ms(lambda: sde_scan(*seg), reps=3, warmup=1)
+    seg_bound = bound(k4_work(1_000_000, 2), "float32")
+    net = k4_args(sde.SystemDrift("SIS", adjs[100], **K4_PARAMS["SIS"]), 100, 100_000,
+                  "scale_mixture", 1e-4)
+    net_ms = cuda_ms(lambda: sde_scan(*net), reps=3, warmup=1)
+    net_bound = bound(k4_work(100_000, 100, 1, "SIS", "scale_mixture"), "float32")
+
+    record = json.loads((DEMO / "summary.json").read_text())
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(REPO):
+        tmp = Path(tmp)
+        # -- the JAX package's default SLBP corpus: 2 trends x D (1e-5, 5e-6), 1e6 / 0.1
+        written = counted("slbp_default", lambda: generate.generate_slbp_dataset(tmp / "slbp"))
+        n_default = len(written)
+        rec = load_pt(written[0])
+        default_ok = (rec["ys_dynamic"].shape == (10_000_000, 2)
+                      and np.isfinite(rec["ys_dynamic"]).all() and rec["ts_dynamic"].shape == (10_000_000,))
+        del rec
+        shutil.rmtree(tmp / "slbp")
+        require(n_default == 4 and default_ok and launches["slbp_default"][3] == 4 * 11, "datagen",
+                f"default SLBP corpus: {n_default} records, K4 launches {launches['slbp_default']}")
+
+        # -- the demo corpus over seeds; the transition against the record
+        def demo_seeds():
+            recs, times = {}, []
+            for s in DEMO_SEEDS:
+                r = sde.simulate_slbp(params={"D": 1e-5}, trend="increase", total_time=DEMO_TT,
+                                      burn_time=1000.0, dt=0.1, seed=s, device="cuda")
+                ts = np.asarray(r["ts_dynamic"], float)[::1000]
+                times.append(locate_transition(ts, np.asarray(r["ys_dynamic"], float)[::1000, 0],
+                                               "SLBP", "increase")["transition_time"])
+                if s == 0:
+                    recs = r
+            return recs, times
+
+        rec0, transitions = counted("demo_seeds", demo_seeds)
+        demo_mean, demo_sd = float(np.mean(transitions)), float(np.std(transitions, ddof=1))
+        demo_gap = abs(record["transition_time_state"] - demo_mean)
+        n_demo = len(transitions)
+        demo_bar = (float(student_t.ppf(0.995, n_demo - 1)) * demo_sd * (1 + 1 / n_demo) ** 0.5
+                    + DG_GRID)
+
+        # -- one of them through the facade, as the slbp phase runs the demo's scan
+        data_file = (tmp / "slbp_data" / f"SLBP_dynamic_total_time_{DEMO_TT}_N_increase"
+                     / "SLBP_dynamic_D_1e-05.pt")
+        save_pt(rec0, data_file)
+        model_dir = tmp / "model"
+        shutil.copytree(SLBP_MODEL, model_dir)
+        scan = counted("demo_scan", lambda: U.uncertainty_ews(
+            model_save_file=model_dir, data_file=data_file, dynamic_type="SLBP",
+            cache_path=tmp / "scan/mpv_cache.pt", nsdiff_g_path=tmp / "scan/mpv_cache_gx.pt",
+            sample_window_step=10, uncertainty_method="both", chunk_windows=16,
+            load_model_when_cached=True, device="cuda"))
+        ts0 = np.asarray(rec0["ts_dynamic"], float)[::1000]
+        tr0 = locate_transition(ts0, np.asarray(rec0["ys_dynamic"], float)[::1000, 0], "SLBP",
+                                "increase")["transition_time"]
+        m_s = metric_row_from_mpv(scan["time_points"], scan["ews"], tr0, slope_window_points=10)
+        m_g = metric_row_from_mpv(scan["nsdiff_g"]["time_points"], scan["nsdiff_g"]["ews"], tr0,
+                                  slope_window_points=10)
+        scan_metrics = {"sampling": {k: m_s.get(k) for k in SLBP_METRICS},
+                        "gx": {k: m_g.get(k) for k in SLBP_METRICS},
+                        "record_sampling": {k: record["sampling_mpv"][k] for k in SLBP_METRICS},
+                        "record_gx": {k: record["gx_mpv"][k] for k in SLBP_METRICS}}
+        require(len(scan["ews"]) == SLBP_WINDOWS and _finite(scan["ews"], SLBP_WINDOWS)
+                and launches["demo_scan"][:3] == (SLBP_K1, 0, 0), "datagen",
+                f"generated trajectory through the facade: {len(scan['ews'])} windows, "
+                f"launches {launches['demo_scan']}")
+        del rec0
+
+        # -- the network CLI at its defaults on the tracked 100-node graph. biomass and
+        # neuronal give their records; SIS diverges on every one of its 10 attempts and
+        # raises, as the JAX package's CLI does on this graph (its hub of degree 63
+        # makes Euler at dt 0.1 unstable on the endemic branch: eps deg dt > 2), so SIS
+        # runs at examples/n100_scale_demo.py's settings (dt 0.01, every 10th step)
+        nets = {}
+        for system in ("biomass", "neuronal", "SIS"):
+            def cli():
+                try:
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        generate.main([system, "--out-dir", str(tmp / "net"), "--graph-dir",
+                                       str(GRAPH_DIR), "--graph-filter", NET_GRAPH])
+                except RuntimeError as exc:
+                    return str(exc)
+                return None
+
+            raised = counted(f"net_{system}", cli)
+            files = sorted((tmp / "net" / NET_GRAPH).glob(f"{system}_dynamic_*.pt"))
+            recs = [load_pt(f)["ys_dynamic"] for f in files]
+            ok = all(r.shape == (100_000, 100) and np.isfinite(r).all() for r in recs)
+            del recs
+            k4n = launches[f"net_{system}"][3]
+            nets[system] = {"seconds": out[f"net_{system}_s"], "records": len(files),
+                            "k4_launches": k4n, "attempts": k4n // 2, "raised": raised}
+            if system == "SIS":
+                require(raised == "simulation diverged after 10 retries (SIS)" and k4n == 20
+                        and not files, "datagen", f"network CLI SIS: {nets[system]}")
+            else:
+                require(raised is None and len(files) == 2 and ok, "datagen",
+                        f"network CLI {system}: {nets[system]}")
+        shutil.rmtree(tmp / "net")
+        sis100 = counted("net_SIS_n100_demo", lambda: sde.simulate_network_system(
+            "SIS", adjs[100], trend="increase", total_time=150.0, burn_time=20.0, dt=0.01,
+            save_every=10, seed=7, control_range=(1e-4, 0.075), base_params={"d": 0.5},
+            eta=1e-4, device="cuda"))
+        k4n = launches["net_SIS_n100_demo"][3]
+        nets["SIS_n100_demo"] = {"seconds": out["net_SIS_n100_demo_s"], "k4_launches": k4n,
+                                 "attempts": k4n // 2, "shape": list(sis100["ys_dynamic"].shape)}
+        require(sis100["ys_dynamic"].shape == (1500, 100)
+                and np.isfinite(sis100["ys_dynamic"]).all(), "datagen",
+                f"SIS at the n100 demo's settings: {nets['SIS_n100_demo']}")
+
+        # -- a generated SIS record through the facade with the trained demo_fig1 model
+        random.seed(0)
+        adj12 = graphs.gen_graph("barabasi_albert", 12, 12, rng=random.Random(0)).adj
+        sis_file = tmp / "sis" / "SIS_dynamic_eta0.0001d0.5_increase.pt"
+        save_pt(counted("sis_record", lambda: sde.simulate_network_system(
+            "SIS", adj12, trend="increase", device="cuda", **FIG1_SIS)), sis_file)
+        (tmp / "sis_cache").mkdir()
+        sis = counted("sis_facade", lambda: U.uncertainty_ews(
+            model_save_file=SIS_MODEL, data_file=sis_file, dynamic_type="SIS",
+            cache_path=tmp / "sis_cache", cache_mode="none", device="cuda"))
+        require(_finite(sis["ews"]) and launches["sis_facade"][0] > 0, "datagen",
+                f"generated SIS record through the facade: launches {launches['sis_facade']}")
+
+        # -- host work: the graph library (read back) and the Bury corpus
+        t_lib, _ = host_s(lambda: graphs.generate_graph_library(tmp / "lib"))
+        lib = sorted((tmp / "lib").glob("*.graphml"))
+        lib_ok = all(graphs.graph_properties(a, np.ones(len(a), bool), "LCC") == len(a)
+                     == int(p.stem.split("_")[-2])
+                     for p in lib for a in [graphml_to_adjacency(p).adj])
+        t_bury, bury = host_s(lambda: bury_sim.generate_bury_training_corpus(tmp / "bury"))
+        require(len(lib) == 120 and lib_ok and len(bury) == 96, "datagen",
+                f"graph library {len(lib)} files (connected, sized: {lib_ok}), Bury corpus "
+                f"{len(bury)}")
+
+    steps_default = 4 * 10_010_000
+    emit(phase="datagen", card=smi_line, seconds=time.perf_counter() - t_phase,
+         k4_checks=checks, k4_bar_rel=K4_REL,
+         segmentations=seg_equal, simulators_card_vs_cpu=card_vs_cpu,
+         k4_burn_in_launch={"steps": 10_000, "ms": k4_ms, "plain_ms": k4_plain,
+                            "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+                            "ns_per_step": k4_ms * 1e6 / 10_000},
+         k4_segment={"steps": 1_000_000, "ms": seg_ms, "ns_per_step": seg_ms * 1e6 / 1e6,
+                     "bound_ms": seg_bound[0], "bound_by": seg_bound[1]},
+         k4_network_n100={"steps": 100_000, "ms": net_ms, "ns_per_step": net_ms * 1e6 / 1e5,
+                          "bound_ms": net_bound[0], "bound_by": net_bound[1]},
+         slbp_default={"records": n_default, "seconds": out["slbp_default_s"],
+                       "seconds_per_record": out["slbp_default_s"] / n_default,
+                       "steps_per_s": steps_default / out["slbp_default_s"],
+                       "k4_launches": launches["slbp_default"][3]},
+         demo={"seeds": list(DEMO_SEEDS), "transitions": transitions, "mean": demo_mean,
+               "sd": demo_sd, "record": record["transition_time_state"], "gap": demo_gap,
+               "bar": demo_bar, "seconds": out["demo_seeds_s"],
+               "k4_launches": launches["demo_seeds"][3]},
+         demo_scan={"seconds": out["demo_scan_s"], "windows": len(scan["ews"]),
+                    "k1_launches": launches["demo_scan"][0], "transition": tr0, **scan_metrics},
+         networks=nets,
+         sis_facade={"record_seconds": out["sis_record_s"], "seconds": out["sis_facade_s"],
+                     "windows": len(sis["ews"]), "k1_launches": launches["sis_facade"][0],
+                     "mpv_first": [float(v) for v in sis["ews"][:4]]},
+         graph_library={"seconds": t_lib, "files": len(lib)},
+         bury={"seconds": t_bury, "files": len(bury)})
+    require(demo_gap <= demo_bar, "datagen",
+            f"demo corpus transition: mean {demo_mean} over seeds {transitions} is {demo_gap} "
+            f"from the record's {record['transition_time_state']} (bar {demo_bar})")
+    k4_launches = sum(launches[k][3] for k in ("slbp_default", "demo_seeds", "net_biomass",
+                                               "net_neuronal", "net_SIS", "net_SIS_n100_demo",
+                                               "sis_record"))
+    row = {"name": "sde_scan", "route": "cuda", "source": "upgdm_tpu_torch/csrc/sde_scan.cu",
+           "replaces": "upgdm_tpu/data/sde.py:110 (_segment_scan: a lax.scan, no Pallas site)",
+           "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
+           "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
+           "shape": "SLBP, 10,000 steps (the default corpus's burn-in launch)",
+           "ms_segment_1M": seg_ms, "bound_ms_segment_1M": seg_bound[0]}
+    return launches["demo_scan"][0] + launches["sis_facade"][0], row
+
+
 def new_kernel_spills(build_log):
     """ptxas lines of the tensor-core kernels that report a spill."""
     bad, current = [], ""
@@ -1920,6 +2268,7 @@ def main(argv=None):
         step_weights,
     )
     from upgdm_tpu_torch.ops.kernels.fused_tmdm import fused_tmdm_rows, tmdm_gammas, tmdm_weights
+    from upgdm_tpu_torch.ops.kernels.sde_scan import sde_scan
     from upgdm_tpu_torch.ops.kernels.roofline import bound_ms, k1_work, k2_work, k3_work
     from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
     from upgdm_tpu_torch.utils.io import load_tensor_list
@@ -2166,6 +2515,7 @@ def main(argv=None):
         fused_denoiser_rows.launches = fused_denoiser_rows.launches_act_bf16 = 0
         fused_chain_rows.launches = fused_chain_rows.launches_act_bf16 = 0
         fused_tmdm_rows.launches = 0
+        sde_scan.launches = 0
 
     # -- 6. the NsDiff main path at full width -----------------------------------
     model = NsDiffModel(NET_PARAM, seed=0, device="cuda")
@@ -2539,6 +2889,9 @@ def main(argv=None):
                   "slbp": slbp_phase(smi_line, zero_counts, kernel_counts, bound),
                   "figures": figures_phase(smi_line, zero_counts, kernel_counts)}
 
+    # -- 21. data generation on the card (K4), fed into K1's paths ---------------------
+    k1_by_path["datagen"], k4_row = datagen_phase(smi_line, zero_counts, kernel_counts, bound)
+
     def row(name, src, replaces, launches, err, ms, plain, bound, act=None):
         out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": launches, "max_abs_err": err, "ms": ms[mm_main],
@@ -2573,6 +2926,7 @@ def main(argv=None):
         row("fused_tmdm", "upgdm_tpu_torch/csrc/fused_tmdm.cu",
             "upgdm_tpu/ops/pallas/fused_denoiser.py:250", k3_launches, k3_err[mm_main],
             k3_ms, k3_plain_ms, k3_bound),
+        k4_row,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -145,7 +145,7 @@ def test_import_pulls_in_no_jax():
         "for m in pkgutil.walk_packages(upgdm_tpu_torch.__path__, 'upgdm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'networkx', 'upgdm_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'networkx', 'pandas', 'upgdm_tpu'))\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -61,6 +61,7 @@
 // (row, feature): the stream is the same in both arms and at any launch
 // shape. Ragged last tiles are masked, not padded; masked rows carry gx = 1.
 #include "denoiser_trunk.cuh"
+#include "philox.cuh"
 #include "trunk_mma.cuh"
 
 namespace upgdm {
@@ -69,37 +70,6 @@ constexpr int MAX_T = 1024;
 // rows: alphas, betas_tilde, betas_bar, betas_tilde_m_1, betas_bar_m_1,
 // alphas_cumprod_prev, one_minus_alphas_bar_sqrt (each [T])
 __constant__ float c_tab[7 * MAX_T];
-
-// Philox4x32-10 (Salmon et al., SC'11), counter (c0..c3), key (k0, k1).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += W0;
-    k.y += W1;
-  }
-  return c;
-}
-
-// Standard normal for (row, step, feature f) by Box-Muller on Philox bits.
-__device__ __forceinline__ float philox_normal(unsigned long long seed, long long row,
-                                               int step, int f) {
-  const uint4 c = make_uint4((uint32_t)row, (uint32_t)((unsigned long long)row >> 32),
-                             (uint32_t)step, (uint32_t)(f >> 1));
-  const uint2 k = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  const uint4 b = philox4x32_10(c, k);
-  // u1 in (0, 1] so log(u1) is finite; 24 bits is all a float keeps
-  const float u1 = ((float)(b.x >> 8) + 1.0f) * (1.0f / 16777216.0f);
-  const float u2 = (float)(b.y >> 8) * (1.0f / 16777216.0f);
-  const float rad = sqrtf(-2.0f * logf(u1));
-  float sn, cs;
-  sincospif(2.0f * u2, &sn, &cs);
-  return rad * ((f & 1) ? sn : cs);
-}
 
 struct Coeffs {
   float a, bt, bb, bt_m1, bb_m1, acp_prev, om;

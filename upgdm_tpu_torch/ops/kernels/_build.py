@@ -93,6 +93,10 @@ def _declare(lib):
     lib.upgdm_chain_resident.restype = i
     lib.upgdm_fused_tmdm.argtypes = [p, ll, i, p, p, p, p, p, p, p, p, p, p, p, p, i, p]
     lib.upgdm_fused_tmdm.restype = i
+    f32, u32 = ctypes.c_float, ctypes.c_uint
+    lib.upgdm_sde_scan.argtypes = [i, i, i, ll, i, p, p, p, p, p, p, i, f32, f32, u64, u32, ll,
+                                   p, p, p]
+    lib.upgdm_sde_scan.restype = i
     lib.upgdm_error_string.argtypes = [i]
     lib.upgdm_error_string.restype = ctypes.c_char_p
 

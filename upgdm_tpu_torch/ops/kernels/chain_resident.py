@@ -121,7 +121,7 @@ def _mulhilo(m: int, x: torch.Tensor):
 def philox4x32_10(counter, key):
     """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors holding 32-bit
     words: counter (c0, c1, c2, c3), key (k0, k1) -> four words. The round of
-    ``csrc/chain_resident.cu::philox4x32_10``."""
+    ``csrc/philox.cuh::philox4x32_10``."""
     c0, c1, c2, c3 = counter
     k0, k1 = key
     for _ in range(10):
@@ -133,19 +133,21 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
-def philox_normal_reference(seed: int, rows: torch.Tensor, step: int, F: int) -> torch.Tensor:
+def philox_normal_reference(seed: int, rows: torch.Tensor, step, F: int) -> torch.Tensor:
     """The standard normals K2 draws for global rows ``rows`` (int64 [M]) at
-    ``step`` (T for y_T, else t): float32 [M, F]. Counter (row low, row high,
-    step, f // 2), key (seed low, seed high); Box-Muller on the first two
-    words, cosine for even f and sine for odd f. A value depends on (seed,
-    row, step, f) only, never on how many rows are asked for. The transform
-    is taken in float64 and rounded once."""
+    ``step`` (T for y_T, else t; an int, or an int64 tensor of a step per
+    row): float32 [M, F]. Counter (row low, row high, step, f // 2), key
+    (seed low, seed high); Box-Muller on the first two words, cosine for even
+    f and sine for odd f. A value depends on (seed, row, step, f) only, never
+    on how many rows are asked for. The transform is taken in float64 and
+    rounded once. K4 (``sde_scan``) draws from the same function."""
     rows = torch.as_tensor(rows, dtype=torch.int64)
     seed = int(seed) & (2**64 - 1)
     key = tuple(torch.full_like(rows, k) for k in (seed & _MASK32, seed >> 32))
+    steps = torch.as_tensor(step, dtype=torch.int64, device=rows.device).expand_as(rows)
     cols = []
     for pair in range((F + 1) // 2):
-        counter = (rows & _MASK32, (rows >> 32) & _MASK32, torch.full_like(rows, int(step)),
+        counter = (rows & _MASK32, (rows >> 32) & _MASK32, steps & _MASK32,
                    torch.full_like(rows, pair))
         b0, b1, _, _ = philox4x32_10(counter, key)
         # u1 in (0, 1] so log(u1) is finite; 24 bits is all a float32 keeps

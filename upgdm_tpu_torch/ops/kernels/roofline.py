@@ -10,7 +10,8 @@ The peaks are the H100 SXM data sheet's dense rates. ``chip_smoke.py`` and
 ``PERF.md`` state every kernel's time beside this bound. The
 ``act_dtype="bfloat16"`` arms of K1 and K2 issue the same exp, log and rsqrt
 results a row as their float32-activation arms (their extra bf16 roundings
-are ordinary instructions), so they share these bounds.
+are ordinary instructions), so they share these bounds. K4 (``sde_scan``) is
+bound by none of the three: its steps form a serial chain (``k4_work``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Tuple
 
 __all__ = [
     "PEAK_FLOPS", "PEAK_BYTES", "SFU_PER_CLOCK_PER_SM", "SM_COUNT", "bound_ms",
-    "k1_work", "k2_work", "k3_work",
+    "k1_work", "k2_work", "k3_work", "k4_work",
 ]
 
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -76,4 +77,27 @@ def k3_work(M: int, F: int = 1) -> Tuple[float, float, float]:
     flops = 2.0 * M * (2 * F * HID + 2 * HID * HID + HID * F)
     nbytes = 4.0 * M * (2 * F + F)
     sfu = M * _softplus(3 * HID)
+    return flops, nbytes, sfu
+
+
+# float32 operations a step of one node's drift and update (SLBP: both states)
+_K4_DRIFT = {"biomass": 17, "SIS": 9, "neuronal": 10, "SLBP": 44}
+
+
+def k4_work(n_steps: int, D: int, save_every: int = 1, system: str = "SLBP",
+            noise: str = "additive") -> Tuple[float, float, float]:
+    """One K4 launch: ``n_steps`` Euler-Maruyama steps of D states. Bytes: the
+    control values [n] read, the saved states [n // save_every, D] written,
+    y0, sigma and y_end [D], and for the networks the adjacency [D, D] and
+    the degrees read once. Operations (float32): the networks' D x D product
+    a step (2 D^2) and the drift and update a node (``_K4_DRIFT``, one more
+    for the scale mixture's product); special functions: the neuronal
+    sigmoid's exp, D a step. The Philox rounds (integer) and the float64
+    Box-Muller transform are left out, so the bound stays a lower bound. It
+    is far below the kernel's time: a step waits on the one before it."""
+    network = system != "SLBP"
+    per_node = _K4_DRIFT[system] / (1 if network else D) + (noise == "scale_mixture")
+    flops = n_steps * (2.0 * D * D * network + per_node * D)
+    nbytes = 4.0 * (n_steps + (n_steps // save_every) * D + 3 * D + network * (D * D + D))
+    sfu = n_steps * D * (system == "neuronal")
     return flops, nbytes, sfu
