@@ -65,7 +65,14 @@ over five seeds, its transition held to ``demo_artifacts/summary.json``; one
 generated trajectory through the facade with the demo model (K1); the network
 CLI's defaults on the tracked 100-node graph; a generated SIS record through
 the facade with the trained ``demo_fig1`` model; the graph library and the
-Bury corpus on the host. Every phase that fails exits non-zero. Progress goes to
+Bury corpus on the host. Last, the real-data pipeline (``real_data``) on a
+temporary copy of ``demo_real``, with no kernel on its path: the Bury CLI's
+``run_one`` with all 20 classifiers (torch modules read from the tracked
+``.keras`` archives, one forward each over the stacked prefixes) against the
+CPU run, the signal stage of ``real_data.run_one`` with the five default
+signals against the CPU run and again as a cache hit, a reference-format
+NsDiff checkpoint through ``load_state_dict``, a ``PhaseTimer`` and the
+device's memory statistics. Every phase that fails exits non-zero. Progress goes to
 stdout as JSON lines; the line before the last holds the kernel table, the
 last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
 kernel phases (build, K1, K2, K3 with their times): the short loop for work on
@@ -2223,6 +2230,213 @@ def datagen_phase(smi_line, zero_counts, kernel_counts, bound):
     return launches["demo_scan"][0] + launches["sis_facade"][0], row
 
 
+# the real-data pipeline (eval/real_data.py, eval/bury.py) on the tracked demo_real
+# record and model; the Bury classifiers' bar against the CPU is the CPU's against
+# Keras (tests/test_torch_port_bury.py); g(x)'s is the JAX package's
+REAL_NAME = "slbp_empirical_demo"
+BURY_ATOL, REAL_GX_TOL = 1e-5, 1e-4
+# the reference layout of a Linear, Conv1d and 1x1-conv FFN weight, and of a copy
+# (utils/torch_import.py::_T inverted)
+TO_REFERENCE = {
+    "linear": lambda a: a.T.copy(),
+    "conv1d": lambda a: a.transpose(2, 1, 0).copy(),
+    "ffn_conv": lambda a: a.T[..., None].copy(),
+    "copy": lambda a: a.copy(),
+}
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def real_data_phase(smi_line, zero_counts, kernel_counts):
+    """The real-data pipeline on the card (``real_data``), over a temporary
+    copy of ``demo_real``: (a) the Bury CLI's ``run_one`` on the record with
+    all 20 classifiers, held to the CPU run at 1e-5 with every row summing to
+    1; (b) the signal stage of ``real_data.run_one`` (``build_signal_data``
+    and the CSV) with the five default signals, the model rows held to the
+    CPU run within g(x)'s bar and the other rows exactly, then again as a
+    cache hit with no g(x) forward (renders and ``real_systems`` where
+    matplotlib is installed); (c) a reference-format NsDiff dict built from
+    the demo model, loaded through ``load_state_dict`` on the card, its g(x)
+    equal to the native model's; (d) a ``PhaseTimer`` over the phase and
+    ``device_memory_stats``. No kernel of the port is on this path: the
+    counts stay 0."""
+    import contextlib
+    import shutil
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from upgdm_tpu_torch import diffusion_models
+    from upgdm_tpu_torch.eval import bury as B
+    from upgdm_tpu_torch.eval import real_data as R
+    from upgdm_tpu_torch.eval.uncertainty import load_model_from_dir
+    from upgdm_tpu_torch.models.sigma_estimation import SigmaEstimation
+    from upgdm_tpu_torch.ops.kernels.sde_scan import sde_scan
+    from upgdm_tpu_torch.utils import io as pio
+    from upgdm_tpu_torch.utils.profiling import PhaseTimer, device_memory_stats
+    from upgdm_tpu_torch.utils.torch_import import nsdiff_reference_key_map
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    timer = PhaseTimer()
+    report = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(REPO):
+        tmp = Path(tmp)
+        demo = tmp / "demo_real"
+        shutil.copytree(REPO / "demo_real", demo, ignore=shutil.ignore_patterns("figures"))
+
+        # -- (a) the Bury classifiers: card against CPU
+        def bury_args(device, tag=""):
+            return SimpleNamespace(
+                data_root=demo / "data", model_root=B.DEFAULT_MODEL_ROOT,
+                output_root=tmp / f"bury_{device}{tag}", pred_dim=0, classifier_len=None,
+                max_models=None, inc_points=10, detrend_method="lowess", detrend_span=0.2,
+                detrend_bandwidth=0.2, full_prefix=False, device=device)
+
+        fwd = Forwards(B.BuryClassifier)
+        with timer.phase("bury_card"):
+            bury_s, paths = host_s(lambda: B.run_one(bury_args("cuda"), REAL_NAME))
+        card_forwards, fwd.n = fwd.n, 0
+        bury_root = Path(paths[0]).parents[1]
+        with timer.phase("bury_cpu"):
+            cpu_paths = B.run_one(bury_args("cpu"), REAL_NAME)
+        fwd.remove()
+        bury_idle = idle_share(lambda: B.run_one(bury_args("cuda", "_profiled"), REAL_NAME), 4)
+        got, want = _csv_rows(paths[0]), _csv_rows(cpu_paths[0])
+        require(got[0] == want[0] == B.TABLE_COLUMNS and len(got) == len(want) > 1,
+                "real_data", f"Bury CSV header {got[0]} / {len(got)} rows, CPU {len(want)}")
+        g, w = np.asarray(got[1:], float), np.asarray(want[1:], float)
+        bury_err = float(np.abs(g[:, 1:] - w[:, 1:]).max())
+        row_sum = float(np.abs(g[:, 1:5].sum(1) - 1).max())
+        require(np.array_equal(g[:, 0], w[:, 0]) and bury_err <= BURY_ATOL
+                and row_sum <= BURY_ATOL, "real_data",
+                f"Bury probabilities: card off the CPU by {bury_err}, rows off 1 by {row_sum} "
+                f"(bar {BURY_ATOL})")
+        clf = B.load_keras_model(next((B.DEFAULT_MODEL_ROOT / "len500").glob("*.keras")), "cuda")
+        meta = json.loads(paths[2].read_text())
+        prefixes = len(g)
+        x = torch.from_numpy(B.prefix_windows(np.linspace(-1, 1, 500), 10, 500)).cuda()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: clf(x))
+        report["bury"] = {
+            "seconds": bury_s, "prefixes": prefixes, "classifiers": meta["num_classifiers"],
+            "classifier_forwards": card_forwards,
+            "jax_keras_calls": meta["num_classifiers"] * prefixes,
+            "max_abs_err_vs_cpu": bury_err, "bar": BURY_ATOL, "max_row_sum_err": row_sum,
+            "widths": {"conv1d_filters": clf.body[0].out_channels, "conv1d_kernel":
+                       clf.body[0].weight.shape[-1], "lstm_units": [clf.body[3].units,
+                                                                    clf.body[5].units]},
+            "forward_ms_50_prefixes": fwd_ms, "profiled_run": bury_idle}
+        require(card_forwards == meta["num_classifiers"] == 20, "real_data",
+                f"{card_forwards} classifier forwards for {meta['num_classifiers']} classifiers")
+
+        # -- (b) the signal stage: card against CPU, then a cache hit
+        record = pio.load_pt(R.resolve_real_data_path(REAL_NAME, demo / "data"))
+
+        def signals(device, tag):
+            args = R.default_args(
+                data_root=str(demo / "data"), real_data_result_root=str(tmp / f"res_{tag}"),
+                bury_prob_root=str(bury_root), output_root=str(tmp / f"fig_{tag}"),
+                model_dir=str(demo / "model"), device=device)
+            rows = R.build_signal_data(dict(record), REAL_NAME, args)[3]
+            stem = R.output_stem(REAL_NAME, args)
+            return args, R.write_signal_table(rows, f"{stem}_signals.csv")
+
+        gfwd = Forwards(SigmaEstimation)
+        with timer.phase("signals_card"):
+            sig_s, (args_card, csv_card) = host_s(lambda: signals("cuda", "card"))
+        fresh_forwards, gfwd.n = gfwd.n, 0
+        with timer.phase("signals_card_cache_hit"):
+            hit_s, (_a, csv_hit) = host_s(lambda: signals("cuda", "card"))
+        hit_forwards = gfwd.n
+        with timer.phase("signals_cpu"):
+            _args_cpu, csv_cpu = signals("cpu", "cpu")
+        gfwd.remove()
+        signals_idle = idle_share(lambda: signals("cuda", "profiled"), 4)
+        got, want = _csv_rows(csv_card), _csv_rows(csv_cpu)
+        require(got == _csv_rows(csv_hit), "real_data", "the cache hit wrote other rows")
+        require(got[0] == want[0] == R.SIGNAL_COLUMNS and len(got) == len(want), "real_data",
+                f"signal CSV header {got[0]}, {len(got)} rows against the CPU's {len(want)}")
+        counts, model_err, exact = {}, 0.0, True
+        for a, b in zip(got[1:], want[1:]):
+            require(a[:4] == b[:4], "real_data", f"signal rows differ: {a} / {b}")
+            counts[a[1]] = counts.get(a[1], 0) + 1
+            if a[1] in ("model_uncertainty", "model_trend"):
+                va, vb = float(a[4]), float(b[4])
+                model_err = max(model_err, abs(va - vb) / (REAL_GX_TOL + REAL_GX_TOL * abs(vb)))
+            else:
+                exact = exact and a[4] == b[4]
+        windows = counts.get("model_uncertainty", 0)
+        require(model_err <= 1.0 and exact and windows > 0 and
+                set(counts) == {"trajectory", "model_uncertainty", "model_trend", "ar1",
+                                "variance", "bury_ml"}, "real_data",
+                f"signals: model rows at {model_err} of the bar (atol = rtol = {REAL_GX_TOL}), "
+                f"other rows equal: {exact}, rows {counts}")
+        require(fresh_forwards > 0 and hit_forwards == 0, "real_data",
+                f"g(x) forwards: {fresh_forwards} fresh, {hit_forwards} on the cache hit")
+        renders = "skipped: matplotlib is not installed"
+        if have_mpl:
+            from upgdm_tpu_torch.figures import real_systems
+
+            with timer.phase("renders"):
+                real_systems.main([
+                    "--data-real-names", REAL_NAME, "--output-dir", str(tmp / "composite"),
+                    "--data-root", str(demo / "data"),
+                    "--real-data-result-root", args_card.real_data_result_root,
+                    "--bury-prob-root", str(bury_root),
+                    "--model-dir", str(demo / "model"), "--device", "cuda"])
+            renders = "rendered: real_systems_figure.png"
+        report["signals"] = {
+            "seconds": sig_s, "cache_hit_seconds": hit_s, "gx_windows": windows,
+            "windows_per_hr": windows * 3600.0 / sig_s, "gx_forwards": fresh_forwards,
+            "gx_forwards_cache_hit": hit_forwards, "rows": counts,
+            "model_err_of_bar": model_err, "bar": REAL_GX_TOL, "other_rows_equal": exact,
+            "renders": renders, "profiled_run": signals_idle}
+
+        # -- (c) a reference-format checkpoint through load_state_dict
+        native, net_param = load_model_from_dir(demo / "model", device="cuda", use_cache=False)
+        flat = native.state_dict()
+        key_map = nsdiff_reference_key_map(
+            int(net_param.get("e_layers", 2)), int(net_param.get("d_layers", 1)),
+            int(net_param.get("p_hidden_layers", 2)))
+        ref = {tk: TO_REFERENCE[tf](flat[fk]) for tk, (fk, tf) in key_map.items()}
+        ref.update(scaler_mean=flat["scaler_mean"], scaler_std=flat["scaler_std"])
+        imported = diffusion_models(task_model="NsDiff", net_param=net_param, seed=1,
+                                    device="cuda")
+        imported.load_state_dict(ref)
+        series = np.asarray(record["ys_dynamic"], np.float32)[:, :1].T[:, :, None]
+        wins = np.stack([series[:, i : i + 100] for i in range(0, 300, 10)])  # [30, 1, 100, 1]
+        xw = torch.from_numpy(wins.reshape(-1, 100, 1)).cuda()
+        with torch.no_grad():
+            gx_native, gx_imported = native.gx_fn(xw), imported.gx_fn(xw)
+        same_keys = sorted(imported.state_dict()) == sorted(flat)
+        require(same_keys and torch.equal(gx_native, gx_imported), "real_data",
+                f"reference checkpoint: keys equal {same_keys}, g(x) off by "
+                f"{(gx_native - gx_imported).abs().max().item()}")
+        report["reference_checkpoint"] = {"keys": len(ref), "gx_equal": True,
+                                          "windows": len(wins)}
+
+    k1, k2, k3 = kernel_counts()
+    require((k1, k2, k3, sde_scan.launches) == (0, 0, 0, 0), "real_data",
+            f"kernel launches K1-K4 {(k1, k2, k3, sde_scan.launches)}: none is on this path")
+    stats = device_memory_stats() or {}
+    emit(phase="real_data", card=smi_line, seconds=time.perf_counter() - t_phase, **report,
+         kernel_launches={"K1": k1, "K2": k2, "K3": k3, "K4": sde_scan.launches},
+         phase_timer=timer.as_dict(),
+         device_memory={k: stats.get(k) for k in ("allocated_bytes.all.peak",
+                                                  "reserved_bytes.all.peak",
+                                                  "num_alloc_retries", "num_ooms")})
+    print(timer.report(), flush=True)
+
+
 def new_kernel_spills(build_log):
     """ptxas lines of the tensor-core kernels that report a spill."""
     bad, current = [], ""
@@ -2891,6 +3105,9 @@ def main(argv=None):
 
     # -- 21. data generation on the card (K4), fed into K1's paths ---------------------
     k1_by_path["datagen"], k4_row = datagen_phase(smi_line, zero_counts, kernel_counts, bound)
+
+    # -- 22. the real-data pipeline: the Bury classifiers and g(x), no kernel -----------
+    real_data_phase(smi_line, zero_counts, kernel_counts)
 
     def row(name, src, replaces, launches, err, ms, plain, bound, act=None):
         out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -38,6 +38,7 @@ from upgdm_tpu_torch.models.tmdm import TMDMModel
 from upgdm_tpu_torch.ops import diffusion as D
 from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
 from upgdm_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
+from upgdm_tpu_torch.train import loop as train_loop
 from upgdm_tpu_torch.train.loop import deterministic_cudnn, make_train_step, run_training
 from upgdm_tpu_torch.train.optimizers import make_lr_schedule, make_optimizer
 from upgdm_tpu_torch.utils import io as pio
@@ -655,9 +656,30 @@ def test_train_dtype_bfloat16(tmp_path):
     np.testing.assert_allclose(losses["bfloat16"], losses["float32"], rtol=5e-2)
     with pytest.raises(ValueError, match="train_dtype"):
         make_train_step(NsDiffModel(dict(NS, train_dtype="fp16"), device="cpu"), opt, None)
-    with pytest.raises(NotImplementedError):
-        run_training(_data(4, NS), _data(4, NS), dict(TRAIN, dataparallel=True), NS, {}, ADAM,
-                     tmp_path, device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["dataparallel", "dataparallel_set"])
+def test_dataparallel_on_one_device_is_the_plain_run(tmp_path, monkeypatch, flag):
+    """On one device the data-parallel flags change nothing, as in the JAX
+    package (its mesh needs more than one device): the same records and
+    weights as the plain run. Over several visible cards the port raises,
+    naming the multi-GPU item of the roadmap."""
+    data = _data(12, NS)
+    recs = {}
+    for name, train in (("plain", TRAIN), ("dp", dict(TRAIN, **{flag: True}))):
+        recs[name] = run_training(data[:8], data[8:], train, NS, {}, ADAM, tmp_path / name,
+                                  device="cpu")
+    assert recs["dp"] == recs["plain"]
+    rel = "train_trace/record_scores.json"
+    assert (tmp_path / "dp" / rel).read_text() == (tmp_path / "plain" / rel).read_text()
+    want = pio.load_checkpoint(tmp_path / "plain/trained_model/model_trained")[1]
+    got = pio.load_checkpoint(tmp_path / "dp/trained_model/model_trained")[1]
+    assert set(got) == set(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    monkeypatch.setattr(train_loop, "visible_devices", lambda device: 2)
+    with pytest.raises(NotImplementedError, match="A7"):
+        run_training(data[:8], data[8:], dict(TRAIN, **{flag: True}), NS, {}, ADAM,
+                     tmp_path / "two", device="cpu")
 
 
 def test_bf16_sampling_after_training_uses_the_new_weights(tmp_path):

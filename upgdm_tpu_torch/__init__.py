@@ -6,9 +6,11 @@ hand-written CUDA kernels under ``csrc/`` with their Python wrappers in
 ``ops/kernels/``, and so does the Euler–Maruyama scan of the SDE simulators
 (K4, ``ops/kernels/sde_scan.py``).
 
-Importing the package pulls in ``torch``, ``numpy``, ``scipy`` and ``yaml`` only —
-never ``jax``, ``flax``, ``optax``, ``networkx``, ``pandas`` or anything of
-``upgdm_tpu``.
+Importing the package pulls in ``torch`` and ``numpy`` only, and its modules
+``scipy`` and ``yaml`` besides — never ``jax``, ``flax``, ``optax``,
+``networkx``, ``pandas``, ``tensorflow``, ``h5py`` or anything of
+``upgdm_tpu``. ``diffusion_models``, ``uncertainty_ews`` and
+``run_training`` are exported lazily, as the JAX package exports them.
 
 Entry points (``eval.uncertainty.uncertainty_ews``, ``diffusion_models``,
 ``NsDiffModel``, ``TMDMModel``, ``DiffSTGModel``, ``NsDiffSpatialModel``,
@@ -19,10 +21,30 @@ Entry points (``eval.uncertainty.uncertainty_ews``, ``diffusion_models``,
 ``eval.uncertainty``, the figure CLIs ``python -m
 upgdm_tpu_torch.figures.<fig> --device ...``, the simulators of ``data.sde``,
 the drivers of ``data.generate`` and ``python -m upgdm_tpu_torch.data.generate
---device ...``)
+--device ...``, the real-data CLIs ``python -m upgdm_tpu_torch.eval.real_data``,
+``python -m upgdm_tpu_torch.eval.bury`` and ``python -m
+upgdm_tpu_torch.figures.real_systems``, each with ``--device``)
 run on ``"cuda"`` unless the caller passes ``device="cpu"``; with no card and
 no explicit CPU device they raise.
 """
-from .models.factory import diffusion_models
+__version__ = "0.1.0"
 
-__all__ = ["diffusion_models"]
+__all__ = ["__version__", "diffusion_models", "uncertainty_ews", "run_training"]
+
+
+def diffusion_models(*args, **kwargs):
+    from .models.factory import diffusion_models as _f
+
+    return _f(*args, **kwargs)
+
+
+def uncertainty_ews(*args, **kwargs):
+    from .eval.uncertainty import uncertainty_ews as _f
+
+    return _f(*args, **kwargs)
+
+
+def run_training(*args, **kwargs):
+    from .train.loop import run_training as _f
+
+    return _f(*args, **kwargs)

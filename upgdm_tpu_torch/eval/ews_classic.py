@@ -11,9 +11,9 @@ Counterpart of ``upgdm_tpu/eval/ews_classic.py`` (ewstools' conventions):
     variance, lag-1 autocorrelation, sample entropy (m=1, r=0.2*std).
 
 The card's machine has no pandas: the rolling variance is pandas'
-``rolling(w).var()`` computed in numpy (ddof 1, NaN before the first full
-window and wherever a window holds a NaN), and ``compute_classic_ews`` returns
-numpy arrays where the JAX package returns ``pd.Series``. Everything here runs
+``rolling(w).var()`` restated in Python (its online update, bit for bit), and
+``compute_classic_ews`` returns numpy arrays where the JAX package returns
+``pd.Series``. Everything here runs
 on the host in numpy, as in the JAX package; every other function is the JAX
 package's numpy code.
 """
@@ -36,7 +36,7 @@ __all__ = [
     "normalize_by_head_mean",
 ]
 
-_BLOCK = 1 << 24  # elements of the window views a block of rolling_variance holds
+_RECOMPUTE = 1000 * np.finfo(float).eps  # rolling_variance's cancellation test
 
 
 def gaussian_smooth(values: np.ndarray, bandwidth: float = 0.2) -> np.ndarray:
@@ -117,17 +117,54 @@ def _window_size(n: int, rolling_window: float) -> int:
 
 def rolling_variance(residuals: np.ndarray, rolling_window: float = 0.5) -> np.ndarray:
     """Sample variance (ddof 1) over trailing windows of w points, NaN before
-    the first full window: pandas' ``rolling(w).var()``, in numpy (a window
-    holding a NaN gives NaN, as pandas' ``min_periods = w`` does)."""
+    the first full window and wherever a window holds a NaN: pandas'
+    ``rolling(w).var()`` bit for bit, its online update restated in Python.
+
+    Welford's update with a Kahan-compensated mean, one compensation for the
+    values added and one for those removed; each step removes the value
+    leaving the window, then adds the new one. Where a removal leaves less
+    than 1000 machine epsilons of the sum of squared deviations it had
+    (cancellation), the window's remaining values are summed afresh."""
     r = np.asarray(residuals, float)
-    w = _window_size(len(r), rolling_window)
-    out = np.full(len(r), np.nan)
-    if len(r) < w:
-        return out
-    views = np.lib.stride_tricks.sliding_window_view(r, w)
-    per = max(1, _BLOCK // w)
-    for a in range(0, len(views), per):
-        out[w - 1 + a : w - 1 + a + per] = views[a : a + per].var(axis=1, ddof=1)
+    n = len(r)
+    w = _window_size(n, rolling_window)
+    out = np.full(n, np.nan)
+    vals = r.tolist()
+    nobs, mean, ssq, comp_add, comp_rem = 0, 0.0, 0.0, 0.0, 0.0
+
+    def add(val):
+        nonlocal nobs, mean, ssq, comp_add
+        if val != val:
+            return
+        nobs += 1
+        prev_mean = mean - comp_add
+        y = val - comp_add
+        t = y - mean
+        comp_add = t + mean - y
+        mean = mean + t / nobs
+        ssq = ssq + (val - prev_mean) * (val - mean)
+
+    for i in range(n):
+        if i >= w:
+            val, before = vals[i - w], ssq
+            if val == val:
+                nobs -= 1
+                if nobs:
+                    prev_mean = mean - comp_rem
+                    y = val - comp_rem
+                    t = y - mean
+                    comp_rem = t + mean - y
+                    mean = mean - t / nobs
+                    ssq = ssq - (val - prev_mean) * (val - mean)
+                else:
+                    mean = ssq = 0.0
+            if ssq < _RECOMPUTE * before:
+                nobs, mean, ssq, comp_add, comp_rem = 0, 0.0, 0.0, 0.0, 0.0
+                for j in range(i - w + 1, i):
+                    add(vals[j])
+        add(vals[i])
+        if i >= w - 1 and nobs >= w:
+            out[i] = ssq / (nobs - 1)
     return out
 
 

@@ -110,7 +110,12 @@ class DiffusionWrapperBase:
         return flat
 
     def load_state_dict(self, flat: Dict[str, np.ndarray], strict: bool = True):
+        """Load the flax-named flat dict, or a reference torch checkpoint
+        that the wrapper's ``convert_reference_state_dict`` converts."""
         flat = dict(flat)
+        converter = getattr(self, "convert_reference_state_dict", None)
+        if converter is not None:
+            flat = converter(flat, strict=strict)
         if "scaler_mean" in flat:
             self._scaler.mean = np.asarray(flat["scaler_mean"], np.float32)
         if "scaler_std" in flat:

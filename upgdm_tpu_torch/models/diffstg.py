@@ -220,6 +220,16 @@ class DiffSTGModel(DiffusionWrapperBase):
     def trainable_mask(self, select=None):
         return {k: True for k in self.net}
 
+    def convert_reference_state_dict(self, flat, strict: bool = True):
+        """A reference torch checkpoint (the UGnet under ``model.*`` with
+        torch's ``.res``/``.conv`` nesting) as the flax-named flat dict
+        (``utils/torch_import.py``); a native dict passes unchanged."""
+        if not any(".res.tcn1.conv." in k or k.endswith("x_proj.weight") for k in flat):
+            return flat
+        from ..utils.torch_import import convert_reference_diffstg_state_dict
+
+        return convert_reference_diffstg_state_dict(flat, self.net_param, strict=strict)
+
     @torch.no_grad()
     def training_step(self, batch, adj, node_mask=None):
         """The loss on batch, dropout off."""

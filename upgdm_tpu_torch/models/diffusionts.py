@@ -303,6 +303,16 @@ class DiffusionTSModel(DiffusionWrapperBase):
     def trainable_mask(self, select=None):
         return {k: True for k in self.net}
 
+    def convert_reference_state_dict(self, flat, strict: bool = True):
+        """A reference torch checkpoint (the Transformer under
+        ``model.model.*``) as the flax-named flat dict
+        (``utils/torch_import.py``); a native dict passes unchanged."""
+        if not any(k.startswith("model.model.") for k in flat):
+            return flat
+        from ..utils.torch_import import convert_reference_dts_state_dict
+
+        return convert_reference_dts_state_dict(flat, self.net_param, strict=strict)
+
     @torch.no_grad()
     def training_step(self, batch):
         """The loss on batch, dropout off (reference surface)."""

@@ -323,6 +323,22 @@ class NsDiffModel(DiffusionWrapperBase):
     def pretrain_g(self, batch):
         return self.loss_fn(batch, "pretrain_g", train=False)
 
+    def convert_reference_state_dict(self, flat, strict: bool = True):
+        """A reference torch checkpoint as the flax-named flat dict
+        (``utils/torch_import.py``); a native dict passes unchanged. Only the
+        subtrees this stage holds are expected."""
+        from ..utils.torch_import import (
+            convert_reference_nsdiff_state_dict,
+            looks_like_reference_nsdiff_state_dict,
+        )
+
+        if not looks_like_reference_nsdiff_state_dict(flat):
+            return flat
+        components = tuple(k for k in ("model", "cond_pred_model", "cond_pred_model_g")
+                           if k in self.net)
+        return convert_reference_nsdiff_state_dict(
+            flat, self.net_param, strict=strict, components=components)
+
 
 class NsDiffVariants(NsDiffModel):
     """Ablation variants (NsDiff_model.py:271-495): ``train_model_select`` in

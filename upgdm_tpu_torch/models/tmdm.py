@@ -23,7 +23,8 @@ The chain state and the posterior arithmetic stay float32 on both.
 Training: ``loss_fn`` (tmdm_adapter.py:90-114) is the CARD noise MSE plus
 ``k_cond`` x (the Gaussian log-likelihood of y_0_hat + ``k_z`` x the VAE's
 KL), with autograd through the plain modules; every module trains.
-``convert_reference_state_dict`` waits for the checkpoint-import slice.
+``convert_reference_state_dict`` imports a reference torch checkpoint
+(``utils/torch_import.py``).
 """
 from __future__ import annotations
 
@@ -242,6 +243,18 @@ class TMDMModel(DiffusionWrapperBase):
 
     def trainable_mask(self, select=None):
         return {k: True for k in self.net}
+
+    def convert_reference_state_dict(self, flat, strict: bool = True):
+        """A reference torch checkpoint as the flax-named flat dict
+        (``utils/torch_import.py``); a native dict passes unchanged."""
+        from ..utils.torch_import import (
+            convert_reference_tmdm_state_dict,
+            looks_like_reference_nsdiff_state_dict,
+        )
+
+        if not looks_like_reference_nsdiff_state_dict(flat):
+            return flat
+        return convert_reference_tmdm_state_dict(flat, self.net_param, strict=strict)
 
     @torch.no_grad()
     def training_step(self, batch):

@@ -21,8 +21,11 @@ The step runs eagerly with autograd on the model's device. With
 ``net_param["train_dtype"]="bfloat16"`` (opt-in, as in the JAX package) the
 loss runs on bf16 copies of every float32 parameter and of the batch and is
 cast back to float32 (``cast_loss``, the JAX package's semantics): the
-gradients, the master weights and Adam stay float32. Data parallelism raises
-until its slice lands.
+gradients, the master weights and Adam stay float32. ``dataparallel`` /
+``dataparallel_set`` change nothing on one device, as in the JAX package,
+which builds its mesh only over more than one device; over several visible
+cards they raise, because multi-GPU data parallelism is not ported yet
+(``ROADMAP.md``, A7).
 
 Graph models (DiffSTG, NsDiff_spatial) train on [num, V, T, F] windows with
 ``adj``: one adjacency [V, V] for every window, or the mixed-topology tuple
@@ -48,6 +51,7 @@ import torch
 
 from ..models.factory import diffusion_models
 from ..utils import io as uio
+from ..utils.device import resolve_device
 from .optimizers import make_lr_schedule, make_optimizer
 
 __all__ = ["run_training", "make_train_step", "deterministic_cudnn"]
@@ -126,10 +130,20 @@ def run_training(trainset, validationset, train_param: dict, net_param: dict,
                              device)
 
 
+def visible_devices(device) -> int:
+    """The devices a data-parallel run on ``device`` would span: every
+    visible card for CUDA, one for the CPU."""
+    return torch.cuda.device_count() if resolve_device(device).type == "cuda" else 1
+
+
 def _run_training(trainset, validationset, train_param, net_param, loss_param,
                   optimizer_param, records_path, adj, seed, model, dataset_param, device):
     if train_param.get("dataparallel") or train_param.get("dataparallel_set"):
-        raise NotImplementedError("data-parallel training waits for the multi-GPU slice")
+        n_dev = visible_devices(model.device if model is not None else device)
+        if n_dev > 1:
+            raise NotImplementedError(
+                f"data-parallel training over {n_dev} devices is not ported yet "
+                "(ROADMAP.md, A7); on one device the flag changes nothing")
     records_path = Path(records_path)
     records_path.mkdir(parents=True, exist_ok=True)
     trainset = np.asarray(trainset, dtype=np.float32)

@@ -21,7 +21,9 @@ files.
 """
 from __future__ import annotations
 
+import csv
 import json
+import math
 import os
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -35,6 +37,7 @@ __all__ = [
     "load_pt",
     "save_tensor_list",
     "load_tensor_list",
+    "write_csv",
     "flatten_params",
     "unflatten_params",
     "save_checkpoint",
@@ -98,6 +101,20 @@ def load_tensor_list(cache_path) -> List[np.ndarray]:
     if not isinstance(data, list):
         raise TypeError(f"cache file must contain a list of tensors: {cache_path}")
     return data
+
+
+def write_csv(path, header, rows) -> Path:
+    """A table as the JAX package's pandas ``to_csv(index=False)`` writes it,
+    without pandas: the header, then one line a row, each value as ``str``
+    and NaN as an empty field (compare the files as parsed numbers)."""
+    path = Path(path)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        for row in rows:
+            w.writerow(["" if isinstance(v, (float, np.floating)) and math.isnan(v) else str(v)
+                        for v in row])
+    return path
 
 
 # ---------------------------------------------------------------------------
