@@ -2437,6 +2437,297 @@ def real_data_phase(smi_line, zero_counts, kernel_counts):
     print(timer.report(), flush=True)
 
 
+# -- multi_gpu: the port's torch.distributed layer on the one card ------------------
+MG_SEED, MG_STEPS, MG_TRAIN_B = 5, 3, 64
+MG_SGD = dict(optimizer_name="SGD", lr=1e-3, momentum=0.9, weight_decay=0.0)
+MG_REPS = 3  # timed sweeps of each kind; the median is reported
+MG_CHUNK_2 = 8  # chunk_windows of each of the two gloo ranks: the same 16-window blocks
+MG_DEADLINE_S = 300.0
+# two gloo ranks on one card against one NCCL rank: the card's f/g matmuls run
+# at other row counts, so per-window MPV at the bar of the kernel chains' two
+# arms (1%); the step at the card-vs-CPU bars of PERF.md §2
+MG_MPV_REL = 0.01
+
+
+def dp_train_steps(mesh, batch):
+    """(model, step, losses, first step's gradients) of MG_STEPS data-parallel
+    steps at the train-bench geometry (NsDiff_model, float32, SGD with
+    momentum: its update is linear in the gradient, so two runs' weights part
+    only by their gradients' rounding), or the plain step with ``mesh`` None."""
+    from upgdm_tpu_torch.models.nsdiff import NsDiffModel
+    from upgdm_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from upgdm_tpu_torch.train.loop import make_train_step
+    from upgdm_tpu_torch.train.optimizers import make_optimizer
+    from upgdm_tpu_torch.utils.weights import flax_flat_from_torch
+
+    model = NsDiffModel(TRAIN_PARAM, seed=0, device="cuda")
+    opt = make_optimizer(MG_SGD, model.net, model.trainable_mask())
+    step = (make_train_step(model, opt, None) if mesh is None
+            else make_dp_train_step(model, opt, mesh))
+    losses, grads = [], None
+    for _ in range(MG_STEPS):
+        losses.append(step(batch))
+        grads = grads or flax_flat_from_torch(
+            {k: p.grad for k, p in model.net.named_parameters() if p.grad is not None})
+    return model, step, losses, grads
+
+
+def two_rank_check(rank, batch, n_windows):
+    """(g), one of two gloo ranks on cuda:0: the NsDiff sweep over the
+    phase's windows in blocks of 2 x MG_CHUNK_2 (K1 counted, timed from a
+    common start), then the data-parallel step on ``batch``."""
+    import torch
+    import torch.distributed as dist
+
+    from upgdm_tpu_torch.models.nsdiff import NsDiffModel
+    from upgdm_tpu_torch.ops.kernels.fused_denoiser import fused_denoiser_rows
+    from upgdm_tpu_torch.parallel.data_parallel import sharded_fast_mpv_sweep
+    from upgdm_tpu_torch.parallel.mesh import make_mesh
+    from upgdm_tpu_torch.train.loop import deterministic_cudnn
+
+    mesh = make_mesh(2)
+    model = NsDiffModel(NET_PARAM, seed=0, device="cuda")
+    sharded_fast_mpv_sweep(model, make_windows(2 * MG_CHUNK_2), PRED_LEN, mesh, MG_CHUNK_2)
+    model.generator.manual_seed(MG_SEED)
+    dist.barrier()
+    fused_denoiser_rows.launches = 0
+    seconds, (mpv, pm) = host_s(lambda: sharded_fast_mpv_sweep(
+        model, make_windows(n_windows), PRED_LEN, mesh, MG_CHUNK_2))
+    launches = fused_denoiser_rows.launches
+    del model
+    with deterministic_cudnn():
+        _, _, losses, grads = dp_train_steps(mesh, batch)
+    return dict(mpv=mpv, pred_mean=pm, seconds=seconds, k1_launches=launches, losses=losses,
+                grads=grads)
+
+
+def grid_dataset(dataset_param):
+    """(h)'s dataset, the demo corpus (module level: the grid's spawned
+    processes import it)."""
+    from upgdm_tpu_torch.utils.data_prep import pre_dataset_timeseries
+
+    x = pre_dataset_timeseries(**dataset_param)
+    return x, None, x.shape[-1]
+
+
+def multi_gpu_phase(smi_line, zero_counts, kernel_counts):
+    """The port's ``torch.distributed`` layer on the one card (``multi_gpu``):
+    (a) a process group of one NCCL rank at a file store; (b) the NsDiff
+    sweep at the bench geometry through ``sharded_fast_mpv_sweep`` bit for bit
+    equal to ``fast_mpv_sweep`` from the same seed, 80 K1 launches each,
+    both timed; (c) ``sharded_window_ensemble`` equal to
+    ``batched_window_ensemble``; (d) TMDM through the sharded sweep equal to
+    ``fast_mpv_sweep`` with its K3 launches; (e) the data-parallel step at
+    the train-bench geometry over NCCL bit for bit equal to the plain step,
+    timed with the all-reduce's share; (f) ``run_training`` with
+    ``dataparallel`` under the group equal to the plain run; (g) two gloo
+    ranks on cuda:0 (NCCL refuses two ranks on one card) against (b) and (e);
+    (h) ``parallel_grid_search`` over a 2-configuration grid against
+    ``grid_search``. Returns the K1 and K3 launches of the sharded sweeps."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from upgdm_tpu_torch import diffusion_models
+    from upgdm_tpu_torch.cli.train_driver import grid_search, parallel_grid_search
+    from upgdm_tpu_torch.eval.uncertainty import batched_window_ensemble, fast_mpv_sweep
+    from upgdm_tpu_torch.models.nsdiff import NsDiffModel
+    from upgdm_tpu_torch.parallel.data_parallel import (
+        sharded_fast_mpv_sweep, sharded_window_ensemble,
+    )
+    from upgdm_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed, spawn_ranks
+    from upgdm_tpu_torch.train.loop import deterministic_cudnn, run_training
+    from upgdm_tpu_torch.utils.io import load_checkpoint, read_model_config
+
+    t_phase = time.perf_counter()
+    report = {}
+    tmp = Path(tempfile.mkdtemp(prefix="multi_gpu_"))
+    try:
+        # -- (a) the group
+        started = maybe_init_distributed(init_method=f"file://{tmp / 'store'}", world_size=1,
+                                         rank=0)
+        mesh = make_mesh()
+        require(started and dist.get_backend() == "nccl" and mesh.world_size == 1
+                and mesh.device.type == "cuda", "multi_gpu",
+                f"group: started {started}, backend {dist.get_backend()}, mesh {mesh}")
+        report["group"] = {"backend": dist.get_backend(), "world_size": mesh.world_size,
+                           "device": str(mesh.device)}
+
+        # -- (b) the NsDiff sweep at world size 1 against fast_mpv_sweep
+        model = NsDiffModel(NET_PARAM, seed=0, device="cuda")
+        wins = make_windows(N_WINDOWS)
+        n_blocks = -(-N_WINDOWS // CHUNK)
+        runs = {"sharded": [], "fast": []}
+        sweeps = {"sharded": lambda: sharded_fast_mpv_sweep(model, wins, PRED_LEN, mesh, CHUNK),
+                  "fast": lambda: fast_mpv_sweep(model, wins, PRED_LEN, chunk_windows=CHUNK,
+                                                 device="cuda")}
+        for _ in range(MG_REPS):
+            for kind in ("sharded", "fast"):
+                model.generator.manual_seed(MG_SEED)
+                zero_counts()
+                secs, out = host_s(sweeps[kind])
+                runs[kind].append((secs, out, kernel_counts()[0]))
+        k1_main = runs["sharded"][-1][2]
+        mpv_b = runs["fast"][0][1][0]
+        for kind, rs in runs.items():
+            require(all(r[2] == STEPS * n_blocks for r in rs), "multi_gpu",
+                    f"{kind} sweep: K1 launched {[r[2] for r in rs]}, expected {STEPS * n_blocks}")
+            require(all(np.array_equal(r[1][0], mpv_b) and np.array_equal(r[1][1],
+                                                                          runs["fast"][0][1][1])
+                        for r in rs), "multi_gpu",
+                    f"{kind} sweep at world size 1 not bit for bit the fast sweep's")
+        require(mpv_b.shape == (N_WINDOWS,) and np.isfinite(mpv_b).all() and (mpv_b > 0).all(),
+                "multi_gpu", f"bad MPV {mpv_b[:4]}")
+        report["nsdiff_sweep"] = {
+            kind: {"windows_per_hr": N_WINDOWS * 3600.0 / statistics.median(r[0] for r in rs),
+                   "seconds": [r[0] for r in rs], "k1_launches": rs[-1][2]}
+            for kind, rs in runs.items()}
+        report["nsdiff_sweep"]["bit_equal"] = True
+
+        # -- (c) the window ensemble
+        ens = {}
+        for kind, fn in (("sharded", lambda: sharded_window_ensemble(
+                model, wins[:CHUNK], PRED_LEN, mesh, CHUNK)),
+                         ("batched", lambda: batched_window_ensemble(
+                model, wins[:CHUNK], PRED_LEN, chunk_windows=CHUNK, device="cuda"))):
+            model.generator.manual_seed(MG_SEED + 1)
+            ens[kind] = fn()
+        require(len(ens["sharded"]) == len(ens["batched"]) == CHUNK
+                and all(a.shape == (NODE, PRED_LEN, 1, N_Z) and np.array_equal(a, b)
+                        for a, b in zip(ens["sharded"], ens["batched"])), "multi_gpu",
+                "sharded_window_ensemble is not batched_window_ensemble bit for bit")
+        report["window_ensemble"] = {"windows": CHUNK, "bit_equal": True}
+        del ens, model
+
+        # -- (d) TMDM through the sharded sweep
+        tmdm = diffusion_models("TMDM", TMDM_PARAM, seed=0, device="cuda")
+        twins = make_windows(T_WINDOWS)
+        tm = {}
+        for kind, fn in (("sharded", lambda: sharded_fast_mpv_sweep(
+                tmdm, twins, PRED_LEN, mesh, T_CHUNK)),
+                         ("fast", lambda: fast_mpv_sweep(tmdm, twins, PRED_LEN,
+                                                         chunk_windows=T_CHUNK, device="cuda"))):
+            tmdm.generator.manual_seed(MG_SEED)
+            zero_counts()
+            secs, out = host_s(fn)
+            tm[kind] = (secs, out, kernel_counts()[2])
+        k3_main = tm["sharded"][2]
+        want_k3 = T_STEPS * -(-T_WINDOWS // T_CHUNK)
+        require(tm["sharded"][2] == tm["fast"][2] == want_k3
+                and all(np.array_equal(a, b) for a, b in zip(tm["sharded"][1], tm["fast"][1])),
+                "multi_gpu", f"TMDM: K3 {tm['sharded'][2]} / {tm['fast'][2]} (expected "
+                f"{want_k3}), bit for bit {[np.array_equal(a, b) for a, b in zip(tm['sharded'][1], tm['fast'][1])]}")
+        report["tmdm_sweep"] = {k: {"seconds": v[0], "windows_per_hr": T_WINDOWS * 3600.0 / v[0],
+                                    "k3_launches": v[2]} for k, v in tm.items()}
+        report["tmdm_sweep"]["bit_equal"] = True
+        del tmdm
+
+        # -- (e) the data-parallel step at world size 1 against the plain step
+        batch = np.random.default_rng(3).normal(size=(MG_TRAIN_B, WINDOWS + PRED_LEN, 1)).astype(
+            np.float32)
+        tb = torch.as_tensor(batch, device="cuda")
+        with deterministic_cudnn():
+            plain, plain_step, plain_losses, _ = dp_train_steps(None, tb)
+            dp, dp_step, dp_losses, dp_grads = dp_train_steps(mesh, tb)
+            same_w = all(np.array_equal(a, b) for a, b in zip(
+                plain.state_dict().values(), dp.state_dict().values()))
+            require(plain_losses == dp_losses and same_w, "multi_gpu",
+                    f"dp step at world size 1: losses {dp_losses} vs {plain_losses}, weights "
+                    f"equal {same_w}")
+            step_ms = {"plain": cuda_ms(lambda: plain_step(tb), reps=5, warmup=1),
+                       "dp": cuda_ms(lambda: dp_step(tb), reps=5, warmup=1)}
+            flat = torch.zeros(sum(int(np.prod(g.shape)) for g in dp_grads.values()) + 1,
+                               device="cuda")
+            ar_ms = cuda_ms(lambda: mesh.all_reduce_mean(flat), reps=10, warmup=2)
+        report["dp_step"] = {"batch": MG_TRAIN_B, "losses": dp_losses, "bit_equal": True,
+                             "step_ms": step_ms, "all_reduce_ms": ar_ms,
+                             "all_reduce_share": ar_ms / step_ms["dp"],
+                             "gradient_floats": flat.numel() - 1}
+        del plain, dp, plain_step, dp_step, flat
+
+        # -- (f) run_training with the flag under the group
+        tr, va, dataset_param = demo_split()
+        net = dict(read_model_config(DEMO / "pre_model_F/trained_model")["net"],
+                   load_pretrain=False)
+        opt = dict(optimizer_name="Adam", lr=1e-3, weight_decay=1e-5, scheduler_set=False)
+        base = dict(train_model_select="pretrain_f", train_batch_size=32, val_batch_size=len(va),
+                    test_set=True, ckpt=False, train_epochs=3)
+        recs = {}
+        for kind, extra in (("plain", {}), ("dataparallel", {"dataparallel": True})):
+            recs[kind] = run_training(tr, va, dict(base, **extra), dict(net),
+                                      {"loss_metric": "KL divergence"}, opt, tmp / kind,
+                                      dataset_param=dataset_param, device="cuda")
+        ckpts = [load_checkpoint(tmp / k / "trained_model/model_trained")[1] for k in recs]
+        same_ckpt = ckpts[0].keys() == ckpts[1].keys() and all(
+            np.array_equal(ckpts[0][k], ckpts[1][k]) for k in ckpts[0])
+        require(recs["plain"] == recs["dataparallel"] and same_ckpt, "multi_gpu",
+                f"run_training with the flag: records equal {recs['plain'] == recs['dataparallel']}"
+                f", checkpoint equal {same_ckpt}")
+        report["run_training"] = {"epochs": base["train_epochs"], "records_equal": True,
+                                  "checkpoint_equal": True,
+                                  "train_last": recs["plain"]["train_scores"][-1]}
+
+        # -- (g) two gloo ranks on the one card
+        torch.cuda.empty_cache()  # the ranks' memory comes from the same card
+        ranks = spawn_ranks(two_rank_check, 2, (batch, N_WINDOWS), backend="gloo",
+                            device="cuda", deadline_s=MG_DEADLINE_S)
+        mpv_g = ranks[0]["mpv"]
+        same_ranks = all(np.array_equal(r["mpv"], mpv_g) and r["losses"] == ranks[0]["losses"]
+                         for r in ranks)
+        gap = float(np.max(np.abs(mpv_g - mpv_b) / mpv_b))
+        loss_rel = float(np.max(np.abs(np.subtract(ranks[0]["losses"], dp_losses))
+                                / np.abs(dp_losses)))
+        worst = 0.0
+        top = max(np.abs(g).max() for g in dp_grads.values())
+        for k, g in dp_grads.items():
+            err = float(np.abs(ranks[0]["grads"][k] - g).max())
+            if k.endswith(".key.bias"):  # zero in exact arithmetic: rounding only
+                require(max(np.abs(g).max(), np.abs(ranks[0]["grads"][k]).max())
+                        <= TRAIN_GRAD_ZERO * top, "multi_gpu", f"gradient {k} not zero")
+                continue
+            bar = float(TRAIN_GRAD_REL * np.abs(g).max())
+            require(err <= bar, "multi_gpu", f"2 ranks: gradient {k} off by {err} > {bar}")
+            worst = max(worst, err / bar if bar else 0.0)
+        want_k1 = STEPS * -(-N_WINDOWS // (2 * MG_CHUNK_2))
+        require(same_ranks and gap <= MG_MPV_REL and loss_rel <= TRAIN_LOSS_RTOL
+                and all(r["k1_launches"] == want_k1 for r in ranks), "multi_gpu",
+                f"2 ranks: ranks agree {same_ranks}, MPV gap {gap}, loss rel {loss_rel}, K1 "
+                f"{[r['k1_launches'] for r in ranks]} (expected {want_k1} each)")
+        slowest = max(r["seconds"] for r in ranks)
+        report["two_gloo_ranks"] = {
+            "windows": N_WINDOWS, "chunk_windows": MG_CHUNK_2, "seconds": [r["seconds"] for r in ranks],
+            "windows_per_hr": N_WINDOWS * 3600.0 / slowest, "mpv_max_rel_gap": gap,
+            "mpv_bar": MG_MPV_REL, "k1_launches": [r["k1_launches"] for r in ranks],
+            "dp_loss_rel": loss_rel, "dp_worst_grad_err_over_bar": worst,
+            "bars": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_REL}}
+
+        # -- (h) the process-parallel grid search
+        grid_data = {k: [v] for k, v in dataset_param.items()}
+        grid_train = {k: [v] for k, v in dict(base, traindata_size=0.9,
+                                              model_evaluation="hold_out").items()}
+        grid_net = {k: [v] for k, v in net.items()}
+        grid_opt = dict({k: [v] for k, v in opt.items()}, lr=[1e-3, 5e-4])
+        sections = (grid_data, grid_train, grid_net, {"loss_metric": ["KL divergence"]},
+                    grid_opt)
+        t_par, par = host_s(lambda: parallel_grid_search(*sections, tmp / "par", grid_dataset,
+                                                         processes=2, device="cuda"))
+        t_seq, _ = host_s(lambda: grid_search(*sections, tmp / "seq", grid_dataset,
+                                              hp_analysis_root=tmp / "hp", device="cuda"))
+        seq = json.loads(next((tmp / "seq").rglob("configs_record_scores.json")).read_text())
+        require(sorted(par) == ["config_0", "config_1"] and par == seq, "multi_gpu",
+                f"parallel_grid_search records {par} vs grid_search {seq}")
+        report["grid_search"] = {"configs": 2, "processes": 2, "seconds_parallel": t_par,
+                                 "seconds_sequential": t_seq, "records_equal": True}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="multi_gpu", card=smi_line, seconds=time.perf_counter() - t_phase, **report)
+    return k1_main, k3_main
+
+
 def new_kernel_spills(build_log):
     """ptxas lines of the tensor-core kernels that report a spill."""
     bad, current = [], ""
@@ -3109,6 +3400,10 @@ def main(argv=None):
     # -- 22. the real-data pipeline: the Bury classifiers and g(x), no kernel -----------
     real_data_phase(smi_line, zero_counts, kernel_counts)
 
+    # -- 23. torch.distributed: the sharded sweeps through K1 and K3, the dp step --------
+    k1_by_path["multi_gpu"], k3_multi_gpu = multi_gpu_phase(smi_line, zero_counts,
+                                                            kernel_counts)
+
     def row(name, src, replaces, launches, err, ms, plain, bound, act=None):
         out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": launches, "max_abs_err": err, "ms": ms[mm_main],
@@ -3137,12 +3432,15 @@ def main(argv=None):
                  k1_err[mm_main], k1_ms, k1_plain_ms, k1_bound,
                  (k1a_launches, k1a_err, k1a_ms, k1a_plain_ms))
     k1_row["launches_by_path"] = k1_by_path
+    k3_by_path = {"tmdm_main": k3_launches, "multi_gpu": k3_multi_gpu}
+    k3_row = row("fused_tmdm", "upgdm_tpu_torch/csrc/fused_tmdm.cu",
+                 "upgdm_tpu/ops/pallas/fused_denoiser.py:250", sum(k3_by_path.values()),
+                 k3_err[mm_main], k3_ms, k3_plain_ms, k3_bound)
+    k3_row["launches_by_path"] = k3_by_path
     print(json.dumps({"kernels": [
         k1_row,
         k2_row,
-        row("fused_tmdm", "upgdm_tpu_torch/csrc/fused_tmdm.cu",
-            "upgdm_tpu/ops/pallas/fused_denoiser.py:250", k3_launches, k3_err[mm_main],
-            k3_ms, k3_plain_ms, k3_bound),
+        k3_row,
         k4_row,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -662,8 +662,8 @@ def test_train_dtype_bfloat16(tmp_path):
 def test_dataparallel_on_one_device_is_the_plain_run(tmp_path, monkeypatch, flag):
     """On one device the data-parallel flags change nothing, as in the JAX
     package (its mesh needs more than one device): the same records and
-    weights as the plain run. Over several visible cards the port raises,
-    naming the multi-GPU item of the roadmap."""
+    weights as the plain run. With several visible cards and no process
+    group the port raises: each card needs its own rank (torchrun)."""
     data = _data(12, NS)
     recs = {}
     for name, train in (("plain", TRAIN), ("dp", dict(TRAIN, **{flag: True}))):
@@ -677,7 +677,7 @@ def test_dataparallel_on_one_device_is_the_plain_run(tmp_path, monkeypatch, flag
     assert set(got) == set(want)
     assert all(np.array_equal(got[k], want[k]) for k in want)
     monkeypatch.setattr(train_loop, "visible_devices", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(RuntimeError, match="one rank per card"):
         run_training(data[:8], data[8:], dict(TRAIN, **{flag: True}), NS, {}, ADAM,
                      tmp_path / "two", device="cpu")
 

@@ -23,7 +23,8 @@ upgdm_tpu_torch.figures.<fig> --device ...``, the simulators of ``data.sde``,
 the drivers of ``data.generate`` and ``python -m upgdm_tpu_torch.data.generate
 --device ...``, the real-data CLIs ``python -m upgdm_tpu_torch.eval.real_data``,
 ``python -m upgdm_tpu_torch.eval.bury`` and ``python -m
-upgdm_tpu_torch.figures.real_systems``, each with ``--device``)
+upgdm_tpu_torch.figures.real_systems``, each with ``--device``, and the
+multi-device dry run ``python -m upgdm_tpu_torch.parallel.dryrun N``)
 run on ``"cuda"`` unless the caller passes ``device="cpu"``; with no card and
 no explicit CPU device they raise.
 """

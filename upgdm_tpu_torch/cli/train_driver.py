@@ -9,8 +9,9 @@ selection on min(train + val), and the
 HP_analysis_result/<records>/<dataset>/hyperparameters.yaml summary. Every
 run trains on ``device`` (default the card). A graph dataset comes with its
 ``adj_bundle`` (adjs [G, V, V], graph_ids [num]); each split hands
-``run_training`` the ids of its windows. The
-process-parallel grid search waits for the multi-GPU slice.
+``run_training`` the ids of its windows. ``parallel_grid_search`` runs
+each configuration in its own spawned process, spread over the visible
+cards.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from pathlib import Path
 from typing import Callable
 
 import numpy as np
+import torch
 import yaml
 
 from ..train.loop import run_training
@@ -26,9 +28,11 @@ from ..utils.config import (
     grid_parameters_generative_learning,
     grid_parameters_generative_learning_spdata,
 )
+from ..utils.device import resolve_device
 from ..utils.io import save_config_dedup, save_record
 
-__all__ = ["hold_out_score", "cross_val_score", "grid_search", "main_from_args"]
+__all__ = ["hold_out_score", "cross_val_score", "grid_search", "parallel_grid_search",
+           "main_from_args"]
 
 
 def _split_train_val(n: int, train_size: float, seed: int = 0):
@@ -170,6 +174,54 @@ def grid_search(dataset_params: dict, train_params: dict, net_params: dict, loss
         stats, (best_name, best_val) = _select_best(configs_record_scores)
         print(f"best config: {best_name} val_loss={best_val}")
         save_record(grid_search_path / "all_models_record_statistic.json", stats)
+
+
+def parallel_grid_search(dataset_params, train_params, net_params, loss_params, optimizer_params,
+                         records_path, build_dataset: Callable, spdata: bool = False,
+                         processes: int = 2, device=None):
+    """Process-parallel grid search (``upgdm_tpu/cli/train_driver.py:195-245``;
+    main_SSLtrain_diffusion_spdata.py:263-336, disabled at the reference's
+    call site: the sequential ``grid_search`` stays the default).
+
+    Each configuration is one ``hold_out_score`` with ``seed=configs_count``
+    in a process of a spawn-context pool, its records under
+    ``records_path/grid_search/config_<i>``, with no dedup and no summary, as
+    in the JAX package. Configuration i trains on ``cuda:(i % cards)``, or on
+    the CPU with ``device="cpu"``. ``build_dataset`` must be picklable.
+    Returns {``config_<i>``: record_scores}."""
+    import multiprocessing as mp
+
+    expand = (grid_parameters_generative_learning_spdata if spdata
+              else grid_parameters_generative_learning)
+    jobs = []
+    for values in it.product(*dataset_params.values()):
+        dataset_param = dict(zip(dataset_params.keys(), values))
+        parameters_list, _ = expand(train_params, net_params, loss_params, optimizer_params)
+        jobs.extend((dataset_param, cfg, i) for i, cfg in enumerate(parameters_list))
+    if resolve_device(device).type == "cuda":
+        cards = torch.cuda.device_count()
+        devices = [f"cuda:{i % cards}" for _, _, i in jobs]
+    else:
+        devices = ["cpu"] * len(jobs)
+    with mp.get_context("spawn").Pool(processes=processes) as pool:
+        results = pool.starmap(
+            _parallel_one_config,
+            [(records_path, dataset_param, cfg, i, build_dataset, spdata, dev)
+             for (dataset_param, cfg, i), dev in zip(jobs, devices)])
+    return dict(results)
+
+
+def _parallel_one_config(records_path, dataset_param, cfg, configs_count, build_dataset, spdata,
+                         device):
+    train_param, net_param, loss_param, optimizer_param = cfg
+    dataset, adj_bundle, nf = build_dataset(dataset_param)
+    _set_data_shape(net_param, dataset_param, nf)
+    save_config_path = Path(records_path) / "grid_search" / f"config_{configs_count}"
+    save_config_path.mkdir(parents=True, exist_ok=True)
+    rs = hold_out_score(dataset, train_param, net_param, loss_param, optimizer_param,
+                        save_config_path, configs_counts=configs_count, adj_bundle=adj_bundle,
+                        dataset_param=dataset_param, seed=configs_count, device=device)
+    return f"config_{configs_count}", rs
 
 
 def main_from_args(args, build_dataset: Callable, spdata: bool, device=None):

@@ -7,7 +7,9 @@ configs/configs_diffusion_spdata.py:4-16):
     python -m upgdm_tpu_torch.cli.train_spdata --cfg <yaml> \
         --train_mode grid|hold_out|cross_val --repeat N [--device cpu]
 
-Trains on the card unless ``--device cpu`` is given. The graphs of a corpus
+Trains on the card unless ``--device cpu`` is given; under ``torchrun`` it
+joins the ranks' group first (graph models train the plain step on every
+rank with ``dataparallel``, as in the JAX package). The graphs of a corpus
 are padded to its largest node count; as in the JAX package, the padded
 nodes count in the loss.
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 
+from ..parallel.mesh import maybe_init_distributed
 from ..utils.data_prep import pre_dataset_spdata
 from .train_driver import main_from_args
 
@@ -39,6 +42,7 @@ def build_dataset(dataset_param: dict):
 
 def main(argv=None):
     args = parse_args(argv)
+    maybe_init_distributed(device=args.device)  # a no-op without torchrun
     main_from_args(args, build_dataset, spdata=True, device=args.device)
 
 

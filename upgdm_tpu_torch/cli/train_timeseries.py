@@ -6,12 +6,17 @@ main_SSLtrain_diffusion_timeseries.py):
     python -m upgdm_tpu_torch.cli.train_timeseries --cfg <yaml> \
         --train_mode grid|hold_out|cross_val --repeat N [--real] [--device cpu]
 
-Trains on the card unless ``--device cpu`` is given.
+Trains on the card unless ``--device cpu`` is given. With ``dataparallel:
+true`` in the config, ``torchrun --nproc_per_node=<cards> -m
+upgdm_tpu_torch.cli.train_timeseries --cfg ...`` trains one rank per card
+(NCCL; gloo with ``--device cpu``), the port's form of the JAX package's
+in-process mesh.
 """
 from __future__ import annotations
 
 import argparse
 
+from ..parallel.mesh import maybe_init_distributed
 from ..utils.data_prep import pre_dataset_timeseries, pre_dataset_timeseries_real
 from .train_driver import main_from_args
 
@@ -32,6 +37,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
+    maybe_init_distributed(device=args.device)  # a no-op without torchrun
     loader = pre_dataset_timeseries_real if args.real else pre_dataset_timeseries
 
     def build_dataset(dataset_param: dict):

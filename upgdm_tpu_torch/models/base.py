@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import draws
 from ..utils.device import resolve_device
 from ..utils.scalers import StandardScaler
 from ..utils.weights import SCALER_KEYS, flax_flat_from_torch, torch_state_from_flax
@@ -193,10 +194,16 @@ class DiffusionWrapperBase:
 
     def antithetic_t(self, n: int, num_timesteps: int, generator=None) -> torch.Tensor:
         """Antithetic timesteps (NsDiff_model.py:149-152): n // 2 + 1 draws
-        from [0, T) followed by their mirrors T - 1 - t, cut to n."""
-        t = torch.randint(0, num_timesteps, (n // 2 + 1,), device=self.device,
-                          generator=generator if generator is not None else self.generator)
-        return torch.cat([t, num_timesteps - 1 - t])[:n]
+        from [0, T) followed by their mirrors T - 1 - t, cut to n. The pairs
+        span the batch, so under a row shard the global batch's draw is cut."""
+        gen = generator if generator is not None else self.generator
+
+        def pairs(shape):
+            m = shape[0]
+            t = torch.randint(0, num_timesteps, (m // 2 + 1,), device=self.device, generator=gen)
+            return torch.cat([t, num_timesteps - 1 - t])[:m]
+
+        return draws.draw(pairs, (n,))
 
     @staticmethod
     @torch.no_grad()

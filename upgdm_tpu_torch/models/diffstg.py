@@ -28,6 +28,7 @@ import torch
 
 from ..ops import diffusion as D
 from ..ops.schedules import diffstg_schedule, inference_time_pairs
+from ..parallel import draws
 from .base import DiffusionWrapperBase
 from .ugnet import UGnet, init_like_flax
 
@@ -141,7 +142,7 @@ class DiffSTGModel(DiffusionWrapperBase):
         future = batch[:, :, self.T_h : self.T, :]
         if self.mask_ratio > 0:
             if mask_draw is None:
-                mask_draw = torch.rand(history.shape, generator=gen, device=self.device)
+                mask_draw = draws.rand(history.shape, gen, device=self.device)
             drop = torch.as_tensor(mask_draw, device=self.device) < self.mask_ratio
             history = torch.where(drop, 0.0, history)
         x0 = torch.cat([batch[:, :, : self.T_h, :], future], dim=2)
@@ -149,9 +150,9 @@ class DiffSTGModel(DiffusionWrapperBase):
 
         # one timestep per graph in 1..T (graph_diffusion_model.py:163-165)
         if t is None:
-            t = torch.randint(1, self.sched.T + 1, (B,), generator=gen, device=self.device)
+            t = draws.randint(1, self.sched.T + 1, (B,), gen, device=self.device)
         t = torch.as_tensor(t, dtype=torch.long, device=self.device)
-        eps = (torch.randn(x0.shape, generator=gen, dtype=x0.dtype, device=self.device)
+        eps = (draws.randn(x0.shape, gen, dtype=x0.dtype, device=self.device)
                if noise is None else torch.as_tensor(noise, dtype=x0.dtype, device=self.device))
         xt = D.diffstg_q_sample(x0, self.sched, t, eps)
         eps_pred = self.net["model"](xt, t.to(torch.float32), x_masked, adj,

@@ -41,6 +41,7 @@ import torch
 
 from ..ops import diffusion as D
 from ..ops.schedules import ddim_time_pairs, diffusionts_schedule
+from ..parallel import draws
 from .base import DiffusionWrapperBase, flax_truncated_normal_
 from .diffusionts_net import DTSTransformer, TimeMixDense
 from .ugnet import init_like_flax
@@ -130,9 +131,9 @@ class DiffusionTSModel(DiffusionWrapperBase):
         data = batch[:, : self.seq_length, :]
         B = data.shape[0]
         if t is None:
-            t = torch.randint(0, self.timesteps, (B,), generator=gen, device=self.device)
+            t = draws.randint(0, self.timesteps, (B,), gen, device=self.device)
         t = torch.as_tensor(t, dtype=torch.long, device=self.device)
-        noise = (torch.randn(data.shape, generator=gen, dtype=data.dtype, device=self.device)
+        noise = (draws.randn(data.shape, gen, dtype=data.dtype, device=self.device)
                  if noise is None else torch.as_tensor(noise, dtype=data.dtype,
                                                        device=self.device))
         x = D.dts_q_sample(data, self._sched_dev, t, noise)
@@ -216,10 +217,13 @@ class DiffusionTSModel(DiffusionWrapperBase):
         sched = self._sched_dev
         pairs, rows = self.ddim_step_table()
 
-        def draw(z):
+        members = N // B
+        shape = (members, B) + tuple(target.shape[1:])
+
+        def draw(z):  # the rows are members sample-major copies of the batch
             if z is not None:
                 return torch.as_tensor(z, dtype=torch.float32, device=self.device)
-            return torch.randn(target.shape, generator=gen, device=self.device)
+            return draws.randn(shape, gen, device=self.device, batch_axis=1).reshape(target.shape)
 
         img0, kns, kqs = noise if noise is not None else (None, [None] * len(rows),
                                                          [None] * len(rows))

@@ -5,7 +5,8 @@ with ``gen=None`` (flax's ``deterministic=True``) or a rate of 0 the input
 passes through unchanged; otherwise each element is kept with probability
 1 - rate and scaled by 1 / (1 - rate). The masks come from the generator the
 caller hands in (the model wrapper's), never from the global RNG, so a seed
-fixes a whole training run.
+fixes a whole training run; under a row shard (``parallel/draws.py``) the
+mask is the global batch's, cut to the rank's rows.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..parallel import draws
 
 __all__ = ["Dropout"]
 
@@ -30,7 +33,7 @@ class Dropout(nn.Module):
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        mask = draws.rand(x.shape, gen, device=x.device) < keep
         return torch.where(mask, x / keep, 0.0)
 
     def extra_repr(self) -> str:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import draws
 from .attention import AttentionLayer
 from .dropout import Dropout
 from .embedding import DataEmbedding
@@ -239,8 +240,8 @@ class NSTransformerVAE(NSTransformer):
         else:  # mean + sqrt(var) * eps_bar, eps_bar ~ N(0, 1/n)
             eps = reparam_eps
             if eps is None:
-                eps = torch.randn((self.n_reparam_samples,) + z_mean.shape, generator=generator,
-                                  device=z_mean.device).mean(dim=0)
+                eps = draws.randn((self.n_reparam_samples,) + tuple(z_mean.shape), generator,
+                                  device=z_mean.device, batch_axis=1).mean(dim=0)
             z_sample = z_mean + torch.sqrt(torch.exp(z_logvar)) * eps.to(z_mean.dtype)
         kl_z = torch.mean(
             -0.5 * torch.mean(1 - z_mean ** 2 + z_logvar - torch.exp(z_logvar), dim=1))

@@ -40,6 +40,7 @@ from ..ops.kernels.fused_denoiser import (
     step_weights,
 )
 from ..ops.schedules import NsDiffSchedule
+from ..parallel import draws
 from ..utils.io import load_checkpoint
 from ..utils.weights import torch_state_from_flax
 from .base import EPS, DiffusionWrapperBase
@@ -225,18 +226,20 @@ class NsDiffModel(DiffusionWrapperBase):
                      use_kernel: Optional[bool] = None):
         """The S-member reverse-chain ensemble from (y0_hat, gx) [B, O, N]:
         samples [B, O, N, S]. ``noise`` (test seam): T arrays [S, B, O, N],
-        z_T first."""
+        z_T first; under a row shard the global batch's, cut to the rank's
+        rows."""
         S = n_z_samples or self.n_z_samples
         B, O, N = y0_hat.shape
         y0_rows = y0_hat[None].expand(S, B, O, N).reshape(S * B, O, N).contiguous()
         gx_rows = gx[None].expand(S, B, O, N).reshape(S * B, O, N).contiguous()
         if noise is not None:
-            noise = [torch.as_tensor(z, dtype=torch.float32, device=self.device)
-                     .reshape(S * B, O, N) for z in noise]
+            noise = [draws.keep_rows(torch.as_tensor(z, dtype=torch.float32, device=self.device)
+                                     .reshape(S, -1, O, N), 1).reshape(S * B, O, N)
+                     for z in noise]
         samples = D.nsdiff_p_sample_loop(
             self.denoiser_fn(y0_rows, gx_rows, use_kernel), y0_rows, gx_rows,
             self._sched_dev, generator=generator if generator is not None else self.generator,
-            use_gx_directly=use_gx_directly, noise=noise,
+            use_gx_directly=use_gx_directly, noise=noise, members=S,
         )
         return samples.reshape(S, B, O, N).permute(1, 2, 3, 0)  # [B, O, N, S]
 
@@ -287,7 +290,7 @@ class NsDiffModel(DiffusionWrapperBase):
         gx = self._apply_g(batch_x) + EPS
         loss1 = torch.mean((y0_hat - batch_y) ** 2) if self.has_f else 0.0
         loss2 = torch.mean((torch.sqrt(gx) - torch.sqrt(y_sigma)) ** 2) if self.has_g else 0.0
-        e = (torch.randn(batch_y.shape, generator=gen, device=self.device, dtype=batch_y.dtype)
+        e = (draws.randn(batch_y.shape, gen, device=self.device, dtype=batch_y.dtype)
              if noise is None else torch.as_tensor(noise, dtype=batch_y.dtype, device=self.device))
         c = D.nsdiff_gather(sched, t, batch_y)
         y_t = D.nsdiff_q_sample(batch_y, y0_hat, sched, t,

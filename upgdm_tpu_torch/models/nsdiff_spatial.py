@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ..ops import diffusion as D
 from ..ops.rolling import wv_sigma_trailing
+from ..parallel import draws
 from .base import EPS
 from .embedding import sinusoidal_time_embedding
 from .layers import Linear, promote
@@ -214,7 +215,7 @@ class NsDiffSpatialModel(NsDiffModel):
         gx = self._apply_g_nodes(batch_x) + EPS
         loss1 = torch.mean((y0_hat - batch_y) ** 2)
         loss2 = torch.mean((torch.sqrt(gx) - torch.sqrt(y_sigma)) ** 2)
-        e = (torch.randn(batch_y.shape, generator=gen, device=self.device, dtype=batch_y.dtype)
+        e = (draws.randn(batch_y.shape, gen, device=self.device, dtype=batch_y.dtype)
              if noise is None else torch.as_tensor(noise, dtype=batch_y.dtype, device=self.device))
         c = D.nsdiff_gather(sched, t, batch_y)
         y_t = D.nsdiff_q_sample(batch_y, y0_hat, sched, t,

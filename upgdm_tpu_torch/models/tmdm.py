@@ -38,6 +38,7 @@ from ..ops import diffusion as D
 from ..ops.kernels.fused_denoiser import check_dtypes, step_weights
 from ..ops.kernels.fused_tmdm import fused_tmdm_rows, tmdm_gammas, tmdm_weights
 from ..ops.schedules import card_schedule
+from ..parallel import draws
 from .base import DiffusionWrapperBase
 from .denoise import TMDMDenoiser
 from .embedding import DataEmbedding
@@ -177,7 +178,8 @@ class TMDMModel(DiffusionWrapperBase):
                      noise=None, use_kernel: Optional[bool] = None):
         """The S-member reverse-chain ensemble from y_0_hat [B, L+P, N]:
         samples [B, pred_len, N, S]. ``noise`` (test seam): T arrays
-        [S, B, L+P, N], z_T first."""
+        [S, B, L+P, N], z_T first; under a row shard the global batch's, cut
+        to the rank's rows."""
         S = n_z_samples or self.n_z_samples
         B, L, N = y_0_hat.shape
         y0_rows = y_0_hat[None].expand(S, B, L, N).reshape(S * B, L, N).contiguous()
@@ -185,11 +187,13 @@ class TMDMModel(DiffusionWrapperBase):
         if not self.denoiser.cat_y_pred and self.denoiser.cat_x:
             emb_rows = x_emb[None].expand(S, *x_emb.shape).reshape(S * B, *x_emb.shape[1:])
         if noise is not None:
-            noise = [torch.as_tensor(z, dtype=torch.float32, device=self.device)
-                     .reshape(S * B, L, N) for z in noise]
+            noise = [draws.keep_rows(torch.as_tensor(z, dtype=torch.float32, device=self.device)
+                                     .reshape(S, -1, L, N), 1).reshape(S * B, L, N)
+                     for z in noise]
         samples = D.card_p_sample_loop(
             self.denoiser_fn(y0_rows, emb_rows, use_kernel), y0_rows, self.sched,
             generator=generator if generator is not None else self.generator, noise=noise,
+            members=S,
         )
         samples = samples.reshape(S, B, L, N)[:, :, -self.pred_len:, :]
         return samples.permute(1, 2, 3, 0)  # [B, O, N, S]
@@ -233,7 +237,7 @@ class TMDMModel(DiffusionWrapperBase):
         if t is None:
             t = self.antithetic_t(batch.shape[0], self.sched.num_timesteps, gen)
         t = torch.as_tensor(t, dtype=torch.long, device=self.device)
-        noise = (torch.randn(batch_y.shape, generator=gen, device=self.device, dtype=batch_y.dtype)
+        noise = (draws.randn(batch_y.shape, gen, device=self.device, dtype=batch_y.dtype)
                  if noise is None
                  else torch.as_tensor(noise, dtype=batch_y.dtype, device=self.device))
         y_t = D.card_q_sample(batch_y, y_0_hat, self.sched, t, noise)

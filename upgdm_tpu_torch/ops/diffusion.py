@@ -8,7 +8,8 @@ reference). A reverse chain is a
 Python loop over t; the denoiser is injected as ``model_fn(y, t)`` so the
 same loop runs the plain module on the CPU and the fused kernel on the card.
 
-Gaussians come from ``torch.randn(..., generator=g)``. The optional
+Gaussians come from ``torch.randn(..., generator=g)`` through
+``parallel/draws.py``, so a row shard draws the global batch's. The optional
 ``noise`` argument (z_T first, then one tensor per step t = T-1 .. 1) is a
 test seam that lets a test hand the loop the exact normals another
 implementation drew.
@@ -20,6 +21,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..parallel import draws
 
 EPS = 10e-8  # the reference's epsilon (NsDiff_model.py:37): 1e-7
 
@@ -148,6 +151,22 @@ def _nsdiff_sigma_y0_hat(c: NsDiffCoeffs, gx, sigma_theta):
     return (-lam1 + torch.sqrt(disc)) / (2.0 * lam0)
 
 
+def _chain_draw(like: torch.Tensor, generator, noise, members: int):
+    """``draw(i)`` of a reverse chain over rows ``like``: ``noise[i]`` when
+    given, else normals shaped like the rows. The rows are ``members``
+    sample-major copies of the batch, so the batch is axis 1 of
+    ``(members, rows // members, ...)``."""
+    shape = (members, like.shape[0] // members) + tuple(like.shape[1:])
+
+    def draw(i):
+        if noise is not None:
+            return torch.as_tensor(noise[i], dtype=like.dtype, device=like.device)
+        return draws.randn(shape, generator, dtype=like.dtype, device=like.device,
+                           batch_axis=1).reshape(like.shape)
+
+    return draw
+
+
 def _noise_var(c, gx, sigma_theta, use_gx_directly):
     if use_gx_directly:
         return gx, c.betas_bar_t * gx
@@ -163,23 +182,20 @@ def nsdiff_p_sample_loop(
     generator: Optional[torch.Generator] = None,
     use_gx_directly: bool = False,
     noise: Optional[Sequence[torch.Tensor]] = None,
+    members: int = 1,
 ) -> torch.Tensor:
     """Full NsDiff reverse chain; returns the final y_0 reparameterisation.
 
     model_fn(y_t, t) -> (eps_theta, sigma_theta); y_0_hat doubles as
     y_T_mean. ``use_gx_directly=True`` replaces the quadratic solve with gx
     (the ``_pe`` variant). ``noise``, when given, holds T tensors shaped like
-    y_0_hat: z_T, then z for t = T-1 .. 1.
+    y_0_hat: z_T, then z for t = T-1 .. 1. The rows are ``members``
+    sample-major copies of the batch (``_chain_draw``).
     """
     n_steps = sched.num_timesteps
     if noise is not None and len(noise) != n_steps:
         raise ValueError(f"noise: expected {n_steps} tensors, got {len(noise)}")
-
-    def draw(i):
-        if noise is not None:
-            return torch.as_tensor(noise[i], dtype=y_0_hat.dtype, device=y_0_hat.device)
-        return torch.randn(y_0_hat.shape, generator=generator, dtype=y_0_hat.dtype,
-                           device=y_0_hat.device)
+    draw = _chain_draw(y_0_hat, generator, noise, members)
 
     y_T_mean = y_0_hat
     y = torch.sqrt(gx) * draw(0) + y_T_mean
@@ -231,13 +247,15 @@ def card_p_sample_loop(
     sched,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Sequence[torch.Tensor]] = None,
+    members: int = 1,
 ) -> torch.Tensor:
     """Full CARD reverse chain (tmdm_diffusion_utils.py:57-119); returns the
     final y_0 reparameterisation.
 
     model_fn(y_t, t) -> eps_theta; y_T = z + y_0_hat (unit-variance prior).
     ``noise``, when given, holds T tensors shaped like y_0_hat: z_T, then z
-    for t = T-1 .. 1.
+    for t = T-1 .. 1. The rows are ``members`` sample-major copies of the
+    batch (``_chain_draw``).
 
     The per-step coefficients are float32 arithmetic on the schedule's
     float32 arrays, operation for operation what the JAX package computes on
@@ -248,12 +266,7 @@ def card_p_sample_loop(
     n_steps = int(np.shape(sched.alphas)[0])
     if noise is not None and len(noise) != n_steps:
         raise ValueError(f"noise: expected {n_steps} tensors, got {len(noise)}")
-
-    def draw(i):
-        if noise is not None:
-            return torch.as_tensor(noise[i], dtype=y_0_hat.dtype, device=y_0_hat.device)
-        return torch.randn(y_0_hat.shape, generator=generator, dtype=y_0_hat.dtype,
-                           device=y_0_hat.device)
+    draw = _chain_draw(y_0_hat, generator, noise, members)
 
     one = np.float32(1.0)
     alpha = _host_f32(sched.alphas)

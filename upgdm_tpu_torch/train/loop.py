@@ -21,11 +21,21 @@ The step runs eagerly with autograd on the model's device. With
 ``net_param["train_dtype"]="bfloat16"`` (opt-in, as in the JAX package) the
 loss runs on bf16 copies of every float32 parameter and of the batch and is
 cast back to float32 (``cast_loss``, the JAX package's semantics): the
-gradients, the master weights and Adam stay float32. ``dataparallel`` /
-``dataparallel_set`` change nothing on one device, as in the JAX package,
-which builds its mesh only over more than one device; over several visible
-cards they raise, because multi-GPU data parallelism is not ported yet
-(``ROADMAP.md``, A7).
+gradients, the master weights and Adam stay float32.
+
+``dataparallel`` / ``dataparallel_set`` train data-parallel across the ranks
+of a ``torch.distributed`` group (``parallel/mesh.py``; one rank per card,
+launched with ``torchrun``), wired as the JAX package wires its mesh
+(``upgdm_tpu/train/loop.py:143-150, 184-187, 235-241``): flat models run
+``parallel.data_parallel.make_dp_train_step`` (JAX's step as it is: no
+``train_dtype``, no finite guard), graph models with ``adj`` the plain step
+on every rank, and each shuffled batch drops its ragged tail to a multiple
+of the world size (a batch with nothing left is skipped). Every rank
+shuffles with the same seed and validates the whole split; only rank 0
+writes, and the others wait for it at a barrier at the end. At world size 1
+the flag changes nothing, as in the JAX package, which builds its mesh only
+over more than one device; with several visible cards and no group it
+raises, since each card needs its own rank.
 
 Graph models (DiffSTG, NsDiff_spatial) train on [num, V, T, F] windows with
 ``adj``: one adjacency [V, V] for every window, or the mixed-topology tuple
@@ -136,16 +146,30 @@ def visible_devices(device) -> int:
     return torch.cuda.device_count() if resolve_device(device).type == "cuda" else 1
 
 
+def data_parallel_mesh(train_param: dict, device):
+    """The mesh a run with ``dataparallel`` trains over, or None: a process
+    group of more than one rank. The flag with several visible cards and no
+    group raises."""
+    if not (train_param.get("dataparallel") or train_param.get("dataparallel_set")):
+        return None
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    if mesh.group is None and visible_devices(device) > 1:
+        raise RuntimeError(
+            f"dataparallel over {visible_devices(device)} visible cards needs one process per "
+            "card: launch one rank per card with torchrun (python -m torch.distributed.run "
+            "--nproc_per_node=<cards> -m upgdm_tpu_torch.cli.train_timeseries ...)")
+    return mesh if mesh.world_size > 1 else None
+
+
 def _run_training(trainset, validationset, train_param, net_param, loss_param,
                   optimizer_param, records_path, adj, seed, model, dataset_param, device):
-    if train_param.get("dataparallel") or train_param.get("dataparallel_set"):
-        n_dev = visible_devices(model.device if model is not None else device)
-        if n_dev > 1:
-            raise NotImplementedError(
-                f"data-parallel training over {n_dev} devices is not ported yet "
-                "(ROADMAP.md, A7); on one device the flag changes nothing")
+    dp_mesh = data_parallel_mesh(train_param, model.device if model is not None else device)
+    writer = dp_mesh is None or dp_mesh.rank == 0
     records_path = Path(records_path)
-    records_path.mkdir(parents=True, exist_ok=True)
+    if writer:
+        records_path.mkdir(parents=True, exist_ok=True)
     trainset = np.asarray(trainset, dtype=np.float32)
     validationset = np.asarray(validationset, dtype=np.float32)
     select = train_param.get("train_model_select")
@@ -173,9 +197,13 @@ def _run_training(trainset, validationset, train_param, net_param, loss_param,
         else:
             print(f"resuming at epoch {init_epoch} from an emergency checkpoint with no torch "
                   "optimizer state: fresh optimizer moments")
-    train_step = make_train_step(
-        model, optimizer, select_for_loss,
-        None if epoch_sched is None else lambda n: epoch_sched(n // steps_per_epoch))
+    lr_at = None if epoch_sched is None else lambda n: epoch_sched(n // steps_per_epoch)
+    if dp_mesh is not None and adj is None:
+        from ..parallel.data_parallel import make_dp_train_step
+
+        train_step = make_dp_train_step(model, optimizer, dp_mesh, select_for_loss, lr_at=lr_at)
+    else:
+        train_step = make_train_step(model, optimizer, select_for_loss, lr_at)
 
     adjs = train_gids = val_gids = None
     if isinstance(adj, tuple):
@@ -205,6 +233,10 @@ def _run_training(trainset, validationset, train_param, net_param, loss_param,
         for epoch in range(init_epoch, train_param["train_epochs"]):
             train_score, n, loss = 0.0, 0, 0.0
             for idx in _batches(trainset.shape[0], train_param["train_batch_size"], True, np_rng):
+                if dp_mesh is not None:  # the ranks' shards need divisible batches
+                    idx = idx[: len(idx) - len(idx) % dp_mesh.world_size]
+                    if len(idx) == 0:
+                        continue
                 loss = train_step(batch_of(trainset, idx), **graph_of(idx, train_gids))
                 if np.isnan(loss):
                     continue
@@ -231,32 +263,36 @@ def _run_training(trainset, validationset, train_param, net_param, loss_param,
             record_scores["val_scores"].append(val_score)
 
             if (epoch % train_param.get("ckpt_period", 2) == 0 and epoch != 0
-                    and train_param.get("ckpt")):
+                    and train_param.get("ckpt") and writer):
                 uio.save_checkpoint(records_path / "ckpt", f"tmpt_model_{epoch}iter",
                                     model.state_dict(), net_param)
     except KeyboardInterrupt:
         raise
     except Exception as e:  # emergency checkpoint (train_diffusion_spdata.py:155-174)
         print(f"training interrupted: {e}")
-        uio.emergency_checkpoint(records_path, model.state_dict(), net_param,
-                                 optimizer.state_dict(), current_step, record_scores)
-        uio.save_record(records_path / "train_trace/record_scores.json", record_scores)
+        if writer:
+            uio.emergency_checkpoint(records_path, model.state_dict(), net_param,
+                                     optimizer.state_dict(), current_step, record_scores)
+            uio.save_record(records_path / "train_trace/record_scores.json", record_scores)
 
     # the optimizer changed the weights in place: drop the cast copies that
     # bf16 sampling (fg_sampling_dtype, the CPU denoiser) would otherwise reuse
     model.weights_changed()
-    uio.save_checkpoint(records_path / "trained_model", "model_trained", model.state_dict(),
-                        net_param)
-    # resolved single-value config consumed at inference (model_trained.yaml)
-    uio.save_config_yaml(
-        records_path / "trained_model/model_trained.yaml",
-        {
-            "dataset": dataset_param,
-            "train": train_param,
-            "net": {k: v for k, v in net_param.items() if k != "device"},
-            "optimizer": optimizer_param,
-            "loss": loss_param,
-        },
-    )
-    uio.save_record(records_path / "train_trace/record_scores.json", record_scores)
+    if writer:
+        uio.save_checkpoint(records_path / "trained_model", "model_trained", model.state_dict(),
+                            net_param)
+        # resolved single-value config consumed at inference (model_trained.yaml)
+        uio.save_config_yaml(
+            records_path / "trained_model/model_trained.yaml",
+            {
+                "dataset": dataset_param,
+                "train": train_param,
+                "net": {k: v for k, v in net_param.items() if k != "device"},
+                "optimizer": optimizer_param,
+                "loss": loss_param,
+            },
+        )
+        uio.save_record(records_path / "train_trace/record_scores.json", record_scores)
+    if dp_mesh is not None:
+        dp_mesh.barrier()
     return record_scores
