@@ -72,17 +72,28 @@ temporary copy of ``demo_real``, with no kernel on its path: the Bury CLI's
 CPU run, the signal stage of ``real_data.run_one`` with the five default
 signals against the CPU run and again as a cache hit, a reference-format
 NsDiff checkpoint through ``load_state_dict``, a ``PhaseTimer`` and the
-device's memory statistics. Every phase that fails exits non-zero. Progress goes to
-stdout as JSON lines; the line before the last holds the kernel table, the
-last line is ``{"ok": true, "device": {...}}``. ``--kernels`` stops after the
-kernel phases (build, K1, K2, K3 with their times): the short loop for work on
-a kernel.
+device's memory statistics. Last, the experiment drivers of ``examples/``
+through the port (``examples``): the SLBP demo at its defaults (K4, K1), the
+Fig-1, network and real-data demos at their defaults against the tracked
+trees' files, the zoo's Fig-1 chain at full width and cut depth (K1 and K3
+through the arm driver, one figure job through the zoo's figure stage), the
+100-node and paper-figure demos at cut depth;
+each cut is printed on a ``reduced`` line. Every phase that fails exits
+non-zero. Progress goes to stdout as JSON lines; the line before the last
+holds the kernel table, the last line is ``{"ok": true, "device": {...}}``.
+``--kernels`` stops after the kernel phases (build, K1, K2, K3 with their
+times): the short loop for work on a kernel; ``--examples`` runs the
+``examples`` phase alone after the build; ``--paper-runs N`` runs the
+paper-figure demo whole N times, each in a fresh process with its graphs
+unpinned, and counts the runs that fail (a measurement, no result line).
 
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
+import contextlib
 import importlib.util
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1499,6 +1510,47 @@ MC_EXPECTED = {"biomass": ("", 0.04759270538176809),
                "SIS": ("", 0.7768259048461914)}
 
 
+IMAGES = (".png", ".svg", ".pdf")
+
+
+def _ignored(rel, patterns):
+    """Whether a .gitignore's ``patterns`` (negations left out) drop the
+    relative path ``rel``: a pattern with a slash before its end is anchored
+    and matched segment by segment, one ending in a slash names a directory,
+    any other matches a name at any depth."""
+    from fnmatch import fnmatchcase
+
+    parts = rel.split("/")
+    for pat in patterns:
+        is_dir = pat.endswith("/")
+        pat = pat.rstrip("/")
+        segs = pat.lstrip("/").split("/")
+        if "/" in pat:
+            n = len(segs)
+            if (len(parts) > n if is_dir else len(parts) == n) and all(
+                    fnmatchcase(a, b) for a, b in zip(parts, segs)):
+                return True
+        elif any(fnmatchcase(a, pat) for a in (parts[:-1] if is_dir else parts)):
+            return True
+    return False
+
+
+def artifact_names(root, like=None):
+    """The relative paths of the files under ``root`` that are not images,
+    .gitignore files, MPV sidecars (``.mpv.json``: the facade of either
+    package writes one beside each `.pt` cache, which the trees' .gitignore
+    drop) or paths the .gitignore of the tree ``like`` (default ``root``)
+    drops: the names a driver's output tree shares with a tracked tree."""
+    like = Path(like or root)
+    gi = like / ".gitignore"
+    patterns = [ln.strip() for ln in (gi.read_text().splitlines() if gi.exists() else [])
+                if ln.strip() and not ln.startswith(("#", "!"))]
+    root = Path(root)
+    return sorted(r for r in (str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+                  if not r.endswith(IMAGES + (".mpv.json",)) and Path(r).name != ".gitignore"
+                  and not _ignored(r, patterns))
+
+
 def _install_slbp_model(models_dir, name):
     """The tracked SLBP model as ``models_dir/<name>`` + ``<name>.yaml``."""
     import shutil
@@ -2728,6 +2780,285 @@ def multi_gpu_phase(smi_line, zero_counts, kernel_counts):
     return k1_main, k3_main
 
 
+# -- the experiment drivers of examples/ through the port (phase `examples`) ---------
+# the transitions of eight seeds of the SLBP demo corpus that phase `datagen`
+# measured on the H100 (PERF.md): the transition of a freshly generated demo
+# trajectory lies in their 99% prediction interval, mean +- t(0.995, 7) sd
+# sqrt(1 + 1/8)
+EX_DEMO_MEAN, EX_DEMO_SD, EX_DEMO_N = 178012.6, 3823.0, 8
+EX_DROP_MIN = 50.0  # both arms' pre-transition MPV drop (the record: 71.4 and 72.0)
+# the zoo's Fig-1 chain at full width, cut in depth: one BA-30 graph a dynamics,
+# one epoch, at most 64 windows a flat family; the DiffSTG and DiffusionTS arms
+# on their trajectory's first chunk of windows (a window: the cache runner's
+# unit, and DiffusionTS's 32-row chunk holds one 30-node window), DiffusionTS
+# with its published ensemble of 100 samples
+EX_GRAPH = "barabasi_albert_30_0"
+EX_MAX_WINDOWS, EX_SLOW_ARM_WINDOWS = 64, 1
+# the zoo's one figure job that the Fig-1 tree schedules besides fig1 itself
+# (whose DiffusionTS arms sweep every window): fig3 over the three d512 NsDiffs
+EX_ZOO_FIGURE = "upgdm_tpu_torch.figures.fig3_dynamics_transfer"
+EX_RANDOM_SEED = 0  # the global `random` state each driver starts from
+# statistics tables with a row a valid sample's group or slope: their rows
+# follow the run's noise, and are held to the tracked tables' only when as
+# many samples are valid as in the tracked run
+EX_BY_VALID = ("mpv_collapse_summary.csv", "mpv_slope_lead_time.csv")
+
+
+@contextlib.contextmanager
+def module_cut(module, **values):
+    """Set ``module``'s attributes to ``values`` for a block, and restore them."""
+    old = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def _csv_head_and_rows(path):
+    lines = Path(path).read_text().splitlines()
+    return lines[0], len(lines) - 1
+
+
+def _valid_samples(path):
+    """The rows of an ``mpv_collapse`` samples CSV with no skip reason."""
+    import csv
+
+    with open(path, newline="") as f:
+        return sum(1 for r in csv.DictReader(f) if not r["skip_reason"])
+
+
+def examples_phase(smi_line, zero_counts, counts):
+    """The port's experiment drivers (``upgdm_tpu_torch/examples``) on the
+    card, in a temporary directory (``examples``): (a) the SLBP demo at its
+    defaults, stage by stage, its summary held to the demo record's keys, the
+    transition to the demo corpus's seeds and both arms' pre-transition drop; (b) the
+    Fig-1, network-statistics and real-data demos at their defaults, their
+    trees (every file that is not an image) held to the tracked
+    ``demo_fig1``, ``demo_network`` and ``demo_real``, the empirical record and
+    the trajectory and classic-EWS rows to the tracked ones; (c) the zoo's
+    Fig-1 chain at full width and cut depth: data, the d512 NsDiffs, the
+    TMDM/DiffusionTS/DiffSTG compare models, the arm driver over the NsDiff and
+    TMDM SIS arms (K1, K3), the DiffSTG and DiffusionTS SIS arms on the first
+    window, the corpus statistics, ``summarize`` and the fig3 job through the
+    zoo's figure stage (a subprocess); (d) the 100-node demo
+    and the paper-figure demo at cut depth. ``counts()`` gives the (K1, K2,
+    K3, K4) launches. Returns the launches of K1, K3 and K4 in the phase."""
+    import random
+
+    import numpy as np
+    from scipy.stats import t as student_t
+
+    from upgdm_tpu_torch.eval.uncertainty import uncertainty_ews
+    from upgdm_tpu_torch.examples import (
+        fig1_arm_driver, fig1_demo, n100_scale_demo, network_stats_demo, paper_figures_demo,
+        real_data_demo, reference_zoo, slbp_demo,
+    )
+    from upgdm_tpu_torch.figures.common import dynamics_filename, graph_file, spdata_source_path
+    from upgdm_tpu_torch.utils.io import load_pt
+
+    t_phase = time.perf_counter()
+    total = np.zeros(4, np.int64)
+    seconds, launches = {}, {}
+    reduced = []
+
+    def counted(name, fn):
+        # the drivers draw their graphs' edges from the global `random`, as the
+        # JAX drivers do (networkx's seed=None): pinned here so that a run
+        # repeats whatever ran before it (the paper demo's SIS at dt 0.1 on its
+        # 70-node small-world graph is at the edge of Euler's stability, 0.5 x
+        # lambda_max 44.1 x 0.1 = 2.2: it diverged in 2 of 10 unpinned whole
+        # runs of the demo on the H100, `--paper-runs 10`)
+        random.seed(EX_RANDOM_SEED)
+        zero_counts()
+        seconds[name], r = host_s(fn)
+        launches[name] = tuple(int(c) for c in counts())
+        total[:] += launches[name]
+        return r
+
+    cuda = ["--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as cuts:
+        tmp = Path(tmp)
+        # -- (a) the SLBP demo at its defaults, one stage a call
+        slbp = tmp / "slbp"
+        for stage in ("data", "train", "scan"):
+            summary = counted(f"slbp_{stage}", lambda: slbp_demo.main(
+                ["--out-dir", str(slbp), "--stage", stage] + cuda))
+        record = json.loads((REPO / "demo_artifacts/summary.json").read_text())
+        half = (float(student_t.ppf(0.995, EX_DEMO_N - 1)) * EX_DEMO_SD
+                * (1 + 1 / EX_DEMO_N) ** 0.5)
+        tr = summary["transition_time_state"]
+        drops = {arm: summary[arm]["pre_transition_drop_percent"]
+                 for arm in ("sampling_mpv", "gx_mpv")}
+        keys_ok = (summary.keys() == record.keys() and all(
+            summary[a].keys() == record[a].keys() for a in ("sampling_mpv", "gx_mpv")))
+        emit(phase="examples", part="slbp_demo", card=smi_line,
+             seconds={k: seconds[f"slbp_{k}"] for k in ("data", "train", "scan")},
+             k4_launches=launches["slbp_data"][3], k1_launches_scan=launches["slbp_scan"][0],
+             windows=summary["n_windows"], transition=tr,
+             interval=[EX_DEMO_MEAN - half, EX_DEMO_MEAN + half], drops=drops,
+             scan_windows_per_hr=summary["windows_per_hr"], keys_as_record=keys_ok)
+        require(summary["n_windows"] == 191 and abs(tr - EX_DEMO_MEAN) <= half
+                and all(d >= EX_DROP_MIN for d in drops.values()) and keys_ok
+                and launches["slbp_data"][3] > 0 and launches["slbp_scan"][0] > 0,
+                "examples", f"slbp_demo: {summary['n_windows']} windows, transition {tr} "
+                f"(interval {EX_DEMO_MEAN} +- {half}), drops {drops}, keys {keys_ok}, "
+                f"launches {launches}")
+
+        # -- (b) the Fig-1, network and real-data demos at their defaults
+        trees = {}
+        for name, mod, tracked in (("fig1_demo", fig1_demo, "demo_fig1"),
+                                   ("network_stats_demo", network_stats_demo, "demo_network"),
+                                   ("real_data_demo", real_data_demo, "demo_real")):
+            out = tmp / name
+            counted(name, lambda: mod.main(["--out-dir", str(out)] + cuda))
+            got, want = artifact_names(out, like=REPO / tracked), artifact_names(REPO / tracked)
+            csvs = {r: (_csv_head_and_rows(out / r), _csv_head_and_rows(REPO / tracked / r))
+                    for r in want if r.endswith(".csv") and (out / r).exists()}
+            valid = {k: _valid_samples(root / r) for k, root in (("port", out),
+                                                                 ("tracked", REPO / tracked))
+                     for r in want if r.endswith("mpv_collapse_samples.csv")}
+            held = {r: v for r, v in csvs.items()
+                    if valid.get("port") == valid.get("tracked") or not r.endswith(EX_BY_VALID)}
+            trees[name] = {"files": len(got), "tracked": len(want), "same": got == want,
+                           "csv_headers_same": all(a[0] == b[0] for a, b in csvs.values()),
+                           "csv_rows": {r: [a[1], b[1]] for r, (a, b) in csvs.items()},
+                           "valid_samples": valid or None}
+            require(got == want and trees[name]["csv_headers_same"]
+                    and all(a[1] == b[1] for a, b in held.values()), "examples",
+                    f"{name}: files {got} against the tracked {want}; CSV (header, rows) "
+                    f"{ {r: v for r, v in csvs.items() if v[0] != v[1]} }")
+        rec = load_pt(tmp / "real_data_demo/data/slbp_empirical_demo.pt")
+        ref = load_pt(REPO / "demo_real/data/slbp_empirical_demo.pt")
+        rec_same = sorted(rec) == sorted(ref) and all(
+            np.array_equal(rec[k], ref[k]) if isinstance(ref[k], np.ndarray) else rec[k] == ref[k]
+            for k in ref)
+        csv_rel = "figures/slbp_empirical_demo/slbp_empirical_demo_real_data_ews_signals.csv"
+        rows = {k: [r for r in (root / csv_rel).read_text().splitlines()
+                    if r.split(",")[1] in ("trajectory", "ar1", "variance")]
+                for k, root in (("port", tmp / "real_data_demo"), ("tracked", REPO / "demo_real"))}
+        emit(phase="examples", part="demos", card=smi_line, trees=trees,
+             seconds={k: seconds[k] for k in trees}, launches={k: launches[k] for k in trees},
+             empirical_record_equal=rec_same, classic_rows=len(rows["port"]),
+             classic_rows_equal=rows["port"] == rows["tracked"])
+        require(rec_same and rows["port"] == rows["tracked"] and len(rows["port"]) > 0
+                and launches["fig1_demo"][0] > 0 and launches["fig1_demo"][3] > 0
+                and launches["network_stats_demo"][3] > 0, "examples",
+                f"real_data_demo: record equal {rec_same}, classic rows equal "
+                f"{rows['port'] == rows['tracked']}; launches {launches}")
+
+        # -- (c) the zoo's Fig-1 chain, full width, cut depth
+        zoo = tmp / "zoo"
+        cuts.enter_context(module_cut(
+            reference_zoo, CORPUS_GRAPHS=[EX_GRAPH],
+            COMPARE_TRAIN={fam: dict(tp, epochs=1, **({"max_windows": EX_MAX_WINDOWS}
+                                                      if "max_windows" in tp else {}))
+                           for fam, tp in reference_zoo.COMPARE_TRAIN.items()}))
+        reduced.append({"zoo": f"corpus: {EX_GRAPH} only, each dynamics; 1 epoch a model; "
+                               f"at most {EX_MAX_WINDOWS} windows a TMDM/DiffusionTS model; "
+                               f"DiffSTG and DiffusionTS arms: {EX_SLOW_ARM_WINDOWS} window; "
+                               "figure stage: the fig3 job only"})
+        counted("zoo_data", lambda: reference_zoo.gen_data(zoo, fig1_only=True, device="cuda"))
+        counted("zoo_models", lambda: reference_zoo.train_models(
+            zoo, 1, generalization_only=True, device="cuda"))
+        counted("zoo_compare", lambda: reference_zoo.train_compare_models(zoo, device="cuda"))
+        ews, src = zoo / "ews_results", zoo / "dataset"
+        counted("zoo_arms", lambda: fig1_arm_driver.main(
+            ["--ews-root", str(ews), "--source-root", str(src), "--graph", EX_GRAPH,
+             "--arms", "NsDiff:SIS", "TMDM:SIS"] + cuda))
+        sis = spdata_source_path(src, "SIS", EX_GRAPH, dynamics_filename("SIS", "increase"))
+        arms = {}
+        for fam in ("DiffSTG", "DiffusionTS"):
+            model_dir = ews / "model_compare" / fam / "SIS"
+            r = counted(f"zoo_{fam}", lambda: uncertainty_ews(
+                model_save_file=model_dir, data_file=sis, dynamic_type="SIS",
+                task_model=fam if fam == "DiffSTG" else None,
+                graph_file=graph_file(src, EX_GRAPH) if fam == "DiffSTG" else None,
+                cache_path=model_dir, max_windows=EX_SLOW_ARM_WINDOWS, device="cuda"))
+            arms[fam] = [float(v) for v in np.asarray(r["ews"])]
+        counted("zoo_stats", lambda: reference_zoo.run_stats(zoo, attempts=1, device="cuda"))
+        corpus = reference_zoo.summarize(zoo)
+        jobs = [j for j in reference_zoo.figure_jobs(zoo)
+                if j[0] == EX_ZOO_FIGURE and "increase" in j[1]]
+        failed = counted("zoo_figure", lambda: reference_zoo.render_figures(
+            zoo, jobs, attempts=1, device="cuda"))
+        fig_log = zoo / "figures" / (EX_ZOO_FIGURE.rsplit(".", 1)[-1] + ".log")
+        fig_log = fig_log.read_text() if fig_log.exists() else ""
+        figure_done = failed == 0 and ("the render is skipped" in fig_log
+                                       or "saved: " in fig_log)
+        arm_sidecars = {arm: fig1_arm_driver.arm_complete(ews, arm, "SIS", "increase")
+                        for arm in ("NsDiff", "TMDM")}
+        emit(phase="examples", part="zoo_fig1", card=smi_line,
+             seconds={k: seconds[k] for k in seconds if k.startswith("zoo_")},
+             launches={k: launches[k] for k in launches if k.startswith("zoo_")},
+             arms_complete=arm_sidecars, slow_arms_mpv=arms,
+             corpus_files=corpus["n_files"], corpus_transitions=corpus["n_transition"],
+             lead_time_positive_frac=corpus["lead_time_positive_frac_overall"],
+             figure_job=[jobs[0][0], jobs[0][1]] if jobs else None, figure_done=figure_done)
+        require(all(arm_sidecars.values()) and launches["zoo_arms"][0] > 0
+                and launches["zoo_arms"][2] > 0 and launches["zoo_data"][3] > 0
+                and all(len(v) == EX_SLOW_ARM_WINDOWS and _finite(v) for v in arms.values())
+                and corpus["n_files"] == 2 * len(reference_zoo.SYSTEMS)
+                and len(jobs) == 1 and figure_done, "examples",
+                f"zoo: arms complete {arm_sidecars}, launches {launches}, slow arms {arms}, "
+                f"corpus files {corpus['n_files']}, figure jobs {jobs} (failed {failed}; "
+                f"log tail {fig_log[-600:]!r})")
+
+        # -- (d) the 100-node demo and the paper-figure demo, cut in depth
+        n100 = counted("n100_scale_demo", lambda: n100_scale_demo.main(
+            ["--out-dir", str(tmp / "n100"), "--epochs", "1", "--scan-step", "100"] + cuda))
+        reduced.append({"n100_scale_demo": "1 epoch a model (default 3), a scan window every "
+                                           "100 points (default 50)"})
+        paper = tmp / "paper"
+        paper_cut = dict(SLBP_TOTALS=("200000.0",), SLBP_MAIN_TOTAL="200000.0",
+                         FIG5_TIME_ROWS=("200000.0:t2e5:10",))
+        cuts.enter_context(module_cut(paper_figures_demo, **paper_cut))
+        reduced.append({"paper_figures_demo": "SLBP records of 200,000 time units only "
+                                              "(default 200k/300k/400k, figures on 400k)"})
+        for stage in ("data", "models", "figures"):
+            counted(f"paper_{stage}", lambda: paper_figures_demo.main(
+                ["--out-dir", str(paper), "--stage", stage] + cuda))
+        n_models = len(list((paper / "ews_results").rglob("*.yaml")))
+        emit(phase="examples", part="n100_and_paper", card=smi_line,
+             seconds={k: seconds[k] for k in seconds if k.startswith(("n100", "paper_"))},
+             launches={k: launches[k] for k in launches if k.startswith(("n100", "paper_"))},
+             n100={k: n100[k] for k in ("NsDiff_spatial", "DiffSTG", "transition_time")},
+             paper_models=n_models)
+        require(all(n100[t]["n_scan_windows"] > 0 for t in ("NsDiff_spatial", "DiffSTG"))
+                and launches["n100_scale_demo"][3] > 0 and launches["paper_data"][3] > 0
+                and launches["paper_figures"][0] > 0, "examples",
+                f"n100/paper: {n100}, launches {launches}")
+    emit(phase="examples", card=smi_line, seconds=time.perf_counter() - t_phase,
+         reduced=reduced, launches={"K1": int(total[0]), "K2": int(total[1]),
+                                    "K3": int(total[2]), "K4": int(total[3])})
+    require(total[1] == 0, "examples", f"K2 launched {total[1]} times: not on these paths")
+    return int(total[0]), int(total[2]), int(total[3])
+
+
+
+def paper_runs(smi_line, n):
+    """The paper-figure demo whole at its defaults, ``n`` times, each run a
+    fresh process as a user starts it: its global ``random`` (which draws the
+    graphs' edges) seeded by the OS, not pinned. Prints each run's exit code,
+    seconds and, for a failed run, its last lines; then how many failed."""
+    failed = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(n):
+            out = Path(tmp) / f"run{i}"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "upgdm_tpu_torch.examples.paper_figures_demo",
+                 "--out-dir", str(out)], cwd=REPO, capture_output=True, text=True,
+                timeout=900)
+            failed += proc.returncode != 0
+            emit(phase="paper_runs", card=smi_line, run=i, rc=proc.returncode,
+                 seconds=time.perf_counter() - t0,
+                 tail=(proc.stdout[-800:] + proc.stderr[-1500:]) if proc.returncode else None)
+            shutil.rmtree(out, ignore_errors=True)
+    emit(phase="paper_runs", card=smi_line, runs=n, failed=failed)
+
 def new_kernel_spills(build_log):
     """ptxas lines of the tensor-core kernels that report a spill."""
     bad, current = [], ""
@@ -2744,6 +3075,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     ap.add_argument("--kernels", action="store_true",
                     help="stop after the kernel phases (build, K1, K2, K3)")
+    ap.add_argument("--examples", action="store_true",
+                    help="after the build, run the phase `examples` alone")
+    ap.add_argument("--paper-runs", type=int, default=0, metavar="N",
+                    help="after the build, run the paper-figure demo whole N times, each "
+                         "in a fresh process with its graphs unpinned, and count failures")
     args = ap.parse_args(argv)
     import torch
 
@@ -2810,6 +3146,27 @@ def main(argv=None):
     emit(phase="build", card=smi_line, seconds=time.perf_counter() - t0, library=lib_path.name, ptxas=ptxas)
     spills = new_kernel_spills(_build.build_log)
     require(not spills, "build", f"register spills in the tensor-core kernels: {spills}")
+
+    def zero_counts():
+        fused_denoiser_rows.launches = fused_denoiser_rows.launches_act_bf16 = 0
+        fused_chain_rows.launches = fused_chain_rows.launches_act_bf16 = 0
+        fused_tmdm_rows.launches = 0
+        sde_scan.launches = 0
+
+    def all_counts():
+        return (fused_denoiser_rows.launches, fused_chain_rows.launches,
+                fused_tmdm_rows.launches, sde_scan.launches)
+
+    if args.paper_runs:  # a measurement, not the smoke: no result line
+        paper_runs(smi_line, args.paper_runs)
+        return
+    if args.examples:  # the short loop for work on the drivers: no kernel table
+        examples_phase(smi_line, zero_counts, all_counts)
+        print(smi_line, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return
 
     def step_phase(which, weights, g, x):
         """One step kernel's phase: the twin over ragged M, widths and edge
@@ -3015,12 +3372,6 @@ def main(argv=None):
     def chunk_mpv(ens):
         """Ensemble variance over the members (last axis), averaged."""
         return ens.var(dim=-1, correction=0).mean().item()
-
-    def zero_counts():
-        fused_denoiser_rows.launches = fused_denoiser_rows.launches_act_bf16 = 0
-        fused_chain_rows.launches = fused_chain_rows.launches_act_bf16 = 0
-        fused_tmdm_rows.launches = 0
-        sde_scan.launches = 0
 
     # -- 6. the NsDiff main path at full width -----------------------------------
     model = NsDiffModel(NET_PARAM, seed=0, device="cuda")
@@ -3404,6 +3755,13 @@ def main(argv=None):
     k1_by_path["multi_gpu"], k3_multi_gpu = multi_gpu_phase(smi_line, zero_counts,
                                                             kernel_counts)
 
+    # -- 24. the experiment drivers of examples/: K1, K3 and K4 on their paths ------------
+    k1_by_path["examples"], k3_examples, k4_examples = examples_phase(smi_line, zero_counts,
+                                                                      all_counts)
+    require(k3_examples > 0, "examples", "K3 was not launched on the drivers' paths")
+    k4_row["launches_by_path"] = {"datagen": k4_row["launches"], "examples": k4_examples}
+    k4_row["launches"] += k4_examples
+
     def row(name, src, replaces, launches, err, ms, plain, bound, act=None):
         out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": launches, "max_abs_err": err, "ms": ms[mm_main],
@@ -3432,7 +3790,8 @@ def main(argv=None):
                  k1_err[mm_main], k1_ms, k1_plain_ms, k1_bound,
                  (k1a_launches, k1a_err, k1a_ms, k1a_plain_ms))
     k1_row["launches_by_path"] = k1_by_path
-    k3_by_path = {"tmdm_main": k3_launches, "multi_gpu": k3_multi_gpu}
+    k3_by_path = {"tmdm_main": k3_launches, "multi_gpu": k3_multi_gpu,
+                  "examples": k3_examples}
     k3_row = row("fused_tmdm", "upgdm_tpu_torch/csrc/fused_tmdm.cu",
                  "upgdm_tpu/ops/pallas/fused_denoiser.py:250", sum(k3_by_path.values()),
                  k3_err[mm_main], k3_ms, k3_plain_ms, k3_bound)

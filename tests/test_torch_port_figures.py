@@ -662,6 +662,34 @@ def test_port_clis_render_on_the_cpu(tree, tmp_path):
                                          "--total-time", TT, "--noises", DV[0]])
 
 
+
+@pytest.mark.parametrize("fig", sorted(CLIS))
+def test_port_clis_without_matplotlib_run_the_same_loaders(fig, tree, tmp_path, monkeypatch):
+    """Without matplotlib (the card's machine) a figure CLI calls the same
+    loaders with the same arguments as with it, and writes no image."""
+    from upgdm_tpu_torch.figures import common
+
+    ews, src = _copy(tree, tmp_path / "tree")
+    argv = ["--ews-root", str(ews), "--source-root", str(src), "--device", "cpu", *CLIS[fig]]
+    mod, calls = pmod(fig), []
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            calls.append((name, repr(args), repr(sorted(kwargs.items()))))
+            return fn(*args, **kwargs)
+        return call
+
+    for name in [n for n in vars(mod) if n.startswith("load_") and callable(getattr(mod, n))]:
+        monkeypatch.setattr(mod, name, recorded(name, getattr(mod, name)))
+    with monkeypatch.context() as m:
+        m.setattr(common, "can_render", lambda: False)
+        mod.main(argv + ["--output-dir", str(tmp_path / "out")])
+    bare, calls[:] = list(calls), []
+    assert not list((tmp_path / "out").glob("**/*.*"))
+    mod.main(argv + ["--output-dir", str(tmp_path / "out")])
+    assert bare and bare == calls
+    assert (tmp_path / "out" / PNGS[fig]).exists()
+
 def test_plot_single_model_check_renders(tmp_path):
     from upgdm_tpu_torch.eval.uncertainty import plot_single_model_check
 

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of ``upgdm_tpu`` for NVIDIA Hopper (H100).
 
 The package mirrors the JAX package module for module (``utils``, ``ops``,
-``models``, ``eval``, ``figures``, ``data``); the TPU's Pallas kernels become
+``models``, ``eval``, ``figures``, ``data``, and the experiment drivers of
+``examples/`` as ``examples``); the TPU's Pallas kernels become
 hand-written CUDA kernels under ``csrc/`` with their Python wrappers in
 ``ops/kernels/``, and so does the Euler–Maruyama scan of the SDE simulators
 (K4, ``ops/kernels/sde_scan.py``).
@@ -23,8 +24,9 @@ upgdm_tpu_torch.figures.<fig> --device ...``, the simulators of ``data.sde``,
 the drivers of ``data.generate`` and ``python -m upgdm_tpu_torch.data.generate
 --device ...``, the real-data CLIs ``python -m upgdm_tpu_torch.eval.real_data``,
 ``python -m upgdm_tpu_torch.eval.bury`` and ``python -m
-upgdm_tpu_torch.figures.real_systems``, each with ``--device``, and the
-multi-device dry run ``python -m upgdm_tpu_torch.parallel.dryrun N``)
+upgdm_tpu_torch.figures.real_systems``, each with ``--device``, the
+multi-device dry run ``python -m upgdm_tpu_torch.parallel.dryrun N`` and the
+experiment drivers ``python -m upgdm_tpu_torch.examples.<name> --device ...``)
 run on ``"cuda"`` unless the caller passes ``device="cpu"``; with no card and
 no explicit CPU device they raise.
 """

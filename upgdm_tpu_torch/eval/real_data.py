@@ -477,23 +477,29 @@ def plot_real_data_subfigure(data_name, ts, y, signal_data, transition_time, arg
 def run_one(data_name_or_path, args):
     """Full per-record pipeline: load -> signals -> stacked figure + CSV.
 
-    Writes ``<output_root>/<name>/<name>_real_data_ews.png`` + ``.svg`` and,
-    unless suppressed, the long-format signals CSV.
+    Writes ``<output_root>/<name>/<name>_real_data_ews.png`` + ``.svg`` (when
+    matplotlib is installed) and, unless suppressed, the long-format signals
+    CSV. Returns the PNG's path (None without matplotlib).
     """
-    import matplotlib.pyplot as plt
+    from ..figures.common import can_render
 
     record = uio.load_pt(resolve_real_data_path(data_name_or_path, args.data_root))
     data_name = data_name_from_record(record, data_name_or_path)
     ts, y, signal_data, signal_rows = build_signal_data(record, data_name, args)
 
     stem = output_stem(data_name, args)
+    if not args.no_save_csv:
+        write_signal_table(signal_rows, f"{stem}_signals.csv")
+    if not can_render():
+        print(f"saved: {stem}_signals.csv (matplotlib is not installed: no render)")
+        return None
+    import matplotlib.pyplot as plt
+
     fig = plot_real_data_subfigure(
         data_name, ts, y, signal_data, get_transition_time_from_record(record), args)
     fig.savefig(stem.with_suffix(".png"), dpi=args.dpi)
     fig.savefig(stem.with_suffix(".svg"))
     plt.close(fig)
-    if not args.no_save_csv:
-        write_signal_table(signal_rows, f"{stem}_signals.csv")
     print(f"saved: {stem.with_suffix('.png')}")
     return stem.with_suffix(".png")
 

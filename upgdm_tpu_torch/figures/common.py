@@ -10,6 +10,7 @@ sweep.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 from pathlib import Path
 
@@ -40,7 +41,8 @@ TRANSITION_COLOR = "#B64342"
 __all__ = [
     "PROJECT_ROOT", "EWS_ROOT", "SOURCE_ROOT", "OUTPUT_ROOT", "DATASETS", "TRENDS",
     "GRAPH_TYPES", "MODEL_COMPARE_MODELS", "FIG1_MODELS", "MODEL_COLORS", "RAW_COLOR",
-    "TRANSITION_COLOR", "add_common_args", "select_one_or_all", "dynamics_filename",
+    "TRANSITION_COLOR", "add_common_args", "can_render", "skip_render",
+    "select_one_or_all", "dynamics_filename",
     "graph_name", "graph_file", "spdata_source_path", "slbp_source_path",
     "load_dynamic_record", "ensure_output", "dynamics_title", "parameters",
     "set_nature_style", "transition_time", "load_raw_trace", "relative_uncertainty",
@@ -103,6 +105,22 @@ def load_dynamic_record(path):
             f"{path} must be a saved dict with keys 'ts_dynamic' and 'ys_dynamic'."
         )
     return record["ts_dynamic"], record["ys_dynamic"]
+
+
+def can_render() -> bool:
+    """Whether matplotlib is installed: the renders need it, the sweeps and
+    tables do not (the card's machine has none)."""
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def skip_render() -> bool:
+    """True, after saying so, when matplotlib is not installed: a figure CLI
+    calls it once its loaders have run (sweeps, caches and tables written)
+    and returns before it renders."""
+    if can_render():
+        return False
+    print("matplotlib is not installed: the sweeps ran, the render is skipped")
+    return True
 
 
 def ensure_output(path: Path) -> Path:

@@ -37,6 +37,7 @@ from .common import (
     load_raw_trace,
     relative_uncertainty,
     set_nature_style,
+    skip_render,
     thin_for_plot,
 )
 
@@ -225,6 +226,8 @@ def main(argv=None):
         args.ews_root, args.source_root, args.trend, args.graph, tuple(args.models),
         args.force_recompute, allow_partial=args.allow_partial, device=args.device,
     )
+    if skip_render():
+        return
     png = plot_fig1(fig_data, args.models, args.output_dir, args.trend)
     print(f"saved: {png}")
 

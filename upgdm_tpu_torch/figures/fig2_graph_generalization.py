@@ -27,6 +27,7 @@ from .common import (
     load_dynamic_record,
     parameters,
     set_nature_style,
+    skip_render,
     spdata_source_path,
     thin_for_plot,
     transition_time,
@@ -90,12 +91,16 @@ def plot_panel(ax_state, ax_ews, panel: dict):
 
 
 def main(argv=None):
-    import matplotlib.pyplot as plt
-
     parser = argparse.ArgumentParser(description="Fig 2: topology generalization")
     add_common_args(parser)
     parser.add_argument("--graph-types", nargs="+", default=list(GRAPH_TYPES))
     args = parser.parse_args(argv)
+    panels = [[load_panel_data(args.ews_root, args.source_root, dataset_type,
+                               args.trend, graph_type, device=args.device)
+               for graph_type in args.graph_types] for dataset_type in DATASETS]
+    if skip_render():
+        return
+    import matplotlib.pyplot as plt
 
     set_nature_style()
     n_rows = 2 * len(DATASETS)
@@ -107,8 +112,7 @@ def main(argv=None):
     axes = np.atleast_2d(axes)
     for row, dataset_type in enumerate(DATASETS):
         for col, graph_type in enumerate(args.graph_types):
-            panel = load_panel_data(args.ews_root, args.source_root, dataset_type,
-                                    args.trend, graph_type, device=args.device)
+            panel = panels[row][col]
             plot_panel(axes[2 * row, col], axes[2 * row + 1, col], panel)
             lo, hi = float(panel["ts"][0]), float(panel["ts"][min(len(panel["ys_mean"]), len(panel["ts"])) - 1])
             axes[2 * row, col].set_xlim(lo, hi)

@@ -27,6 +27,7 @@ from .common import (
     parameters,
     relative_uncertainty,
     set_nature_style,
+    skip_render,
     spdata_source_path,
     thin_for_plot,
     transition_time,
@@ -77,18 +78,20 @@ def load_panel_data(ews_root, source_root, dataset_type, data_trend, device=None
 
 
 def main(argv=None):
-    import matplotlib.pyplot as plt
-
     parser = argparse.ArgumentParser(description="Fig 3: dynamics transfer")
     add_common_args(parser)
     args = parser.parse_args(argv)
+    panels = [load_panel_data(args.ews_root, args.source_root, dataset_type, args.trend,
+                              device=args.device) for dataset_type in DATASETS]
+    if skip_render():
+        return
+    import matplotlib.pyplot as plt
+
     set_nature_style()
     n_cols = len(DATASETS)
     fig, axes = plt.subplots(2, n_cols, figsize=(3.2 * n_cols, 4.6), sharex="col",
                              gridspec_kw={"hspace": 0.1})
-    for col, dataset_type in enumerate(DATASETS):
-        panel = load_panel_data(args.ews_root, args.source_root, dataset_type, args.trend,
-                                device=args.device)
+    for col, (dataset_type, panel) in enumerate(zip(DATASETS, panels)):
         tt = transition_time(panel["ts"], panel["ys_mean"], dataset_type, args.trend)
         ts, mean = thin_for_plot(panel["ts"][: len(panel["ys_mean"])], panel["ys_mean"])
         axes[0, col].plot(ts, mean, color=RAW_COLOR, linewidth=1.2)

@@ -19,6 +19,7 @@ from .common import (
     ensure_output,
     load_dynamic_record,
     set_nature_style,
+    skip_render,
     slbp_source_path,
 )
 
@@ -74,8 +75,6 @@ def load_sensitivity_data(ews_root, source_root, data_trend, metric,
 
 
 def main(argv=None):
-    import matplotlib.pyplot as plt
-
     parser = argparse.ArgumentParser(description="Fig 4: SLBP sensitivity")
     add_common_args(parser)
     parser.add_argument("--metric", choices=["mpv", "prediction_error"], default="mpv")
@@ -86,13 +85,17 @@ def main(argv=None):
     parser.add_argument("--pred-lens", nargs="+", type=int, default=list(PRED_LENS))
     parser.add_argument("--window-lens", nargs="+", type=int, default=list(WINDOW_LENS))
     args = parser.parse_args(argv)
-    set_nature_style()
     data = load_sensitivity_data(
         args.ews_root, args.source_root, args.trend, args.metric,
         total_time=args.total_time, d_value=args.d_value,
         pred_lens=tuple(args.pred_lens), window_lens=tuple(args.window_lens),
         device=args.device,
     )
+    if skip_render():
+        return
+    import matplotlib.pyplot as plt
+
+    set_nature_style()
     tt = transition_time(data["ts"], data["ys"])
 
     fig, axes = plt.subplots(3, 1, figsize=(6.4, 6.2), sharex=True,

@@ -19,6 +19,7 @@ from .common import (
     ensure_output,
     load_dynamic_record,
     set_nature_style,
+    skip_render,
     slbp_source_path,
 )
 
@@ -59,8 +60,6 @@ def load_panel_data(ews_root, source_root, trend, total_time, cache_folder, d_va
 
 
 def main(argv=None):
-    import matplotlib.pyplot as plt
-
     parser = argparse.ArgumentParser(description="Fig 5: tipping types grid")
     add_common_args(parser)
     # the paper's defaults, overridable for reduced-scale demo trees.
@@ -74,6 +73,15 @@ def main(argv=None):
     time_rows = [
         (t, f, int(s)) for t, f, s in (row.split(":") for row in args.time_rows)
     ]
+    panels = [[load_panel_data(args.ews_root, args.source_root, trend, total_time,
+                               cache_folder, d_value, step, model_name=args.model_name,
+                               device=args.device)
+               for d_value in d_values for trend in TRENDS]
+              for total_time, cache_folder, step in time_rows]
+    if skip_render():
+        return
+    import matplotlib.pyplot as plt
+
     set_nature_style()
     n_cols = len(d_values) * len(TRENDS)
     fig, axes = plt.subplots(2 * len(time_rows), n_cols,
@@ -84,9 +92,7 @@ def main(argv=None):
         col = 0
         for d_value in d_values:
             for trend in TRENDS:
-                panel = load_panel_data(args.ews_root, args.source_root, trend,
-                                        total_time, cache_folder, d_value, step,
-                                        model_name=args.model_name, device=args.device)
+                panel = panels[row_index][col]
                 state_row, mpv_row = 2 * row_index, 2 * row_index + 1
                 axes[state_row, col].plot(panel["ts"], panel["ys"], color="#0F4D92",
                                           linewidth=0.9)

@@ -24,6 +24,7 @@ from .common import (
     ensure_output,
     load_dynamic_record,
     set_nature_style,
+    skip_render,
     slbp_source_path,
 )
 
@@ -71,22 +72,24 @@ def load_panel_data(ews_root, source_root, data_trend,
 
 
 def main(argv=None):
-    import matplotlib.pyplot as plt
-
     parser = argparse.ArgumentParser(description="Fig 6: SLBP model analysis")
     add_common_args(parser)
     # the paper's defaults, overridable
     parser.add_argument("--total-time", default=TOTAL_TIME)
     parser.add_argument("--d-value", default=D_VALUE)
     args = parser.parse_args(argv)
+    panels = [load_panel_data(args.ews_root, args.source_root, trend,
+                              total_time=args.total_time, d_value=args.d_value,
+                              device=args.device) for trend in TRENDS]
+    if skip_render():
+        return
+    import matplotlib.pyplot as plt
+
     set_nature_style()
     fig, axes = plt.subplots(5, len(TRENDS), figsize=(5.6 * len(TRENDS), 9.5),
                              sharex="col", gridspec_kw={"hspace": 0.2})
     axes = np.atleast_2d(axes)
-    for col, trend in enumerate(TRENDS):
-        panel = load_panel_data(args.ews_root, args.source_root, trend,
-                                total_time=args.total_time, d_value=args.d_value,
-                                device=args.device)
+    for col, (trend, panel) in enumerate(zip(TRENDS, panels)):
         axes[0, col].plot(panel["ts"], panel["ys"], color="#0F4D92", linewidth=0.9)
         axes[0, col].set_title(trend)
         if panel["sampling"].get("available"):

@@ -19,6 +19,7 @@ from .common import (
     ensure_output,
     load_dynamic_record,
     set_nature_style,
+    skip_render,
     slbp_source_path,
 )
 
@@ -80,8 +81,6 @@ def load_ablation_panel(ews_root, series, time_data, trend, folder, title,
 
 
 def main(argv=None):
-    import matplotlib.pyplot as plt
-
     parser = argparse.ArgumentParser(description="Fig 7: training/ablation analysis")
     add_common_args(parser)
     # the paper's defaults, overridable
@@ -89,7 +88,6 @@ def main(argv=None):
     parser.add_argument("--d-value", default=TEST_D_VALUE)
     args = parser.parse_args(argv)
     tt_d = (args.total_time, args.d_value, args.device)
-    set_nature_style(font_size=8)
     time_data, series = load_dynamic_record(
         slbp_source_path(args.source_root, args.total_time, args.trend, args.d_value)
     )
@@ -104,6 +102,11 @@ def main(argv=None):
         ("ablation", [load_ablation_panel(args.ews_root, series, time_data, args.trend, f, t, *tt_d)
                       for f, t in ABLATION_PANELS]),
     ]
+    if skip_render():
+        return
+    import matplotlib.pyplot as plt
+
+    set_nature_style(font_size=8)
     n_cols = max(len(panels) for _g, panels in groups)
     fig, axes = plt.subplots(1 + len(groups), n_cols,
                              figsize=(3.0 * n_cols, 2.0 * (1 + len(groups))),

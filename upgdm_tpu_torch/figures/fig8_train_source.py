@@ -18,6 +18,7 @@ from .common import (
     ensure_output,
     load_dynamic_record,
     set_nature_style,
+    skip_render,
     slbp_source_path,
 )
 
@@ -68,8 +69,6 @@ def load_mpv(model_dir, record, trend, total_time=TOTAL_TIME, d_value=D_VALUE,
 
 
 def main(argv=None):
-    import matplotlib.pyplot as plt
-
     parser = argparse.ArgumentParser(description="Fig 8: training-source comparison")
     add_common_args(parser)
     # the paper's defaults, overridable
@@ -78,9 +77,17 @@ def main(argv=None):
     parser.add_argument("--train-end", type=float, default=TRAIN_END,
                         help="right edge of the training-span shading")
     args = parser.parse_args(argv)
-    set_nature_style(font_size=8)
     records = {trend: load_slbp_record(args.source_root, trend, args.total_time, args.d_value)
                for trend in TRENDS}
+    signals = {(trend, folder): load_mpv(Path(args.ews_root) / "NsDiff_dataset" / folder,
+                                         records[trend], trend, args.total_time,
+                                         args.d_value, args.device)
+               for trend in TRENDS for folder, _, _ in MODEL_PANELS}
+    if skip_render():
+        return
+    import matplotlib.pyplot as plt
+
+    set_nature_style(font_size=8)
     n_rows = 1 + len(MODEL_PANELS)
     fig, axes = plt.subplots(n_rows, len(TRENDS), figsize=(5.4 * len(TRENDS), 2.0 * n_rows),
                              sharex="col", gridspec_kw={"hspace": 0.25})
@@ -90,8 +97,7 @@ def main(argv=None):
         axes[0, col].plot(rec["plot_time"], rec["plot_state"], color="#0F4D92", linewidth=0.9)
         axes[0, col].set_title(f"test trend: {trend}")
         for row, (folder, label, shaded_trends) in enumerate(MODEL_PANELS, start=1):
-            model_dir = Path(args.ews_root) / "NsDiff_dataset" / folder
-            sig = load_mpv(model_dir, rec, trend, args.total_time, args.d_value, args.device)
+            sig = signals[trend, folder]
             ax = axes[row, col]
             ax.plot(sig["time"][: len(sig["mpv"])], sig["mpv"], ".",
                     color="#B64342", markersize=2)

@@ -25,6 +25,7 @@ from .common import (
     ensure_output,
     load_dynamic_record,
     set_nature_style,
+    skip_render,
     slbp_source_path,
 )
 
@@ -85,24 +86,25 @@ def load_signal(ews_root, source_root, noise, trend, smooth: bool,
 
 
 def main(argv=None):
-    import matplotlib.pyplot as plt
-
     parser = argparse.ArgumentParser(description="Fig 9: smoothing control")
     add_common_args(parser)
     # the paper's defaults, overridable
     parser.add_argument("--total-time", default=TOTAL_TIME)
     parser.add_argument("--noises", nargs="+", default=list(NOISES))
     args = parser.parse_args(argv)
-    set_nature_style(font_size=8)
     noises = tuple(args.noises)
+    signals = [[load_signal(args.ews_root, args.source_root, noise, args.trend,
+                            smooth=smooth, total_time=args.total_time, device=args.device)
+                for smooth in (False, True)] for noise in noises]
+    if skip_render():
+        return
+    import matplotlib.pyplot as plt
+
+    set_nature_style(font_size=8)
     fig, axes = plt.subplots(3, len(noises), figsize=(5.4 * len(noises), 6.0),
                              sharex="col", gridspec_kw={"hspace": 0.2})
     axes = np.atleast_2d(axes)
-    for col, noise in enumerate(noises):
-        raw = load_signal(args.ews_root, args.source_root, noise, args.trend,
-                          smooth=False, total_time=args.total_time, device=args.device)
-        smooth = load_signal(args.ews_root, args.source_root, noise, args.trend,
-                             smooth=True, total_time=args.total_time, device=args.device)
+    for col, (noise, (raw, smooth)) in enumerate(zip(noises, signals)):
         axes[0, col].plot(raw["plot_time"], raw["plot_state"], color="#0F4D92",
                           linewidth=0.8, label="raw")
         axes[0, col].plot(smooth["plot_time"], smooth["plot_state"], color="#E28E2C",

@@ -5,7 +5,8 @@ trajectory x topology x trend, locates the raw-state transition, pulls
 gx-MPV via ``uncertainty_ews(uncertainty_method='gx')`` on ``--device``
 (default: the card), computes baseline/min MPV drops, lead times and
 trailing-slope metrics, and writes per-sample CSV + mean±std summary tables
-(+ optional check plots; matplotlib is imported in the call).
+(+ optional check plots and relation figures, rendered when matplotlib is
+installed; the tables are written without it).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from pathlib import Path
 import numpy as np
 
 from ..eval.uncertainty import uncertainty_ews
-from .common import DATASETS, EWS_ROOT, OUTPUT_ROOT, SOURCE_ROOT, TRENDS
+from .common import DATASETS, EWS_ROOT, OUTPUT_ROOT, SOURCE_ROOT, TRENDS, can_render
 
 TRANSITION_EDGE_FRACTION = 0.10
 MIN_TRANSITION_WINDOW = 10
@@ -580,7 +581,7 @@ def analyze_file(args, dynamic_type, topology_type, topology, trend, eta, data_f
     if metrics.get("skip_reason"):
         row.update(is_transition=False, skip_reason=metrics["skip_reason"])
         return row
-    if getattr(args, "plot_checks", False):
+    if getattr(args, "plot_checks", False) and can_render():
         plot_path = (
             Path(getattr(args, "check_plot_dir", None) or Path(args.output_dir) / "mpv_collapse_checks")
             / dynamic_type / topology_type / topology / f"{data_file.stem}_mpv_check.png"
@@ -790,19 +791,20 @@ def main(argv=None):
         drop_records = threshold_records_from_runtime(sample_rows)
         write_relation_csv(output_dir / "mpv_drop_threshold_lead_time.csv",
                            drop_records, "threshold")
-        plot_six_panel_relation(
-            drop_records, "threshold", "lead_time",
-            output_dir / "mpv_drop_threshold_lead_time.png",
-            xlabel="MPV drop threshold", ylabel="Lead time",
-        )
         slope_records = slope_relation_records(sample_rows)
         write_relation_csv(output_dir / "mpv_slope_lead_time.csv",
                            slope_records, "min_slope_global")
-        plot_six_panel_relation(
-            slope_records, "min_slope_global", "lead_time",
-            output_dir / "mpv_slope_lead_time.png",
-            xlabel="Minimum MPV local slope", ylabel="Lead time",
-        )
+        if can_render():
+            plot_six_panel_relation(
+                drop_records, "threshold", "lead_time",
+                output_dir / "mpv_drop_threshold_lead_time.png",
+                xlabel="MPV drop threshold", ylabel="Lead time",
+            )
+            plot_six_panel_relation(
+                slope_records, "min_slope_global", "lead_time",
+                output_dir / "mpv_slope_lead_time.png",
+                xlabel="Minimum MPV local slope", ylabel="Lead time",
+            )
     print(f"scanned_files: {len(files)}")
     print(f"valid_rows: {sum(1 for r in sample_rows if str(r.get('skip_reason', '')) == '')}")
     print(f"samples_csv: {output_dir / args.samples_csv}")

@@ -3,7 +3,8 @@
 Counterpart of ``upgdm_tpu/figures/real_systems.py``: runs the port's
 real-data pipeline (``eval/real_data.py``) for a list of empirical records on
 ``--device`` (default: the card) and tiles the subfigures into a labelled
-grid (matplotlib, imported by the renders).
+grid (matplotlib, imported by the renders; without it the signal tables
+are written and nothing is rendered).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import argparse
 from pathlib import Path
 
 from ..eval import real_data as rda
-from .common import OUTPUT_ROOT, ensure_output
+from .common import OUTPUT_ROOT, ensure_output, skip_render
 from .figure_composer import compose_image_grid
 
 DEFAULT_REAL_DATA_NAMES = (
@@ -52,6 +53,8 @@ def main(argv=None):
         device=ns.device,
     )
     pngs = [rda.run_one(name, args) for name in ns.data_real_names]
+    if skip_render():
+        return None
     out = ensure_output(ns.output_dir)
     composed = compose_image_grid(pngs, out / "real_systems_figure.png", n_cols=ns.n_cols)
     print(f"saved: {composed}")
