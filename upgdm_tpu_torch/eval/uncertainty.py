@@ -63,6 +63,7 @@ from ..ops.windows import (
 )
 from ..utils import io as uio
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, count
 
 PROJECT_ROOT = Path(os.environ.get("UPGDM_PROJECT_ROOT", Path(__file__).resolve().parents[2]))
 
@@ -362,15 +363,19 @@ def _check_device(model, device):
 def _chunks(model, windows_array, chunk):
     """Yield (scaled [chunk*node, W, F] float32 block, valid count)."""
     n, node, W, F = windows_array.shape
+    prep = annotate("upgdm.sweep.prep")
     for start in range(0, n, chunk):
-        block = windows_array[start : start + chunk]
-        valid = block.shape[0]
-        if valid < chunk:  # pad to the fixed chunk shape
-            block = np.concatenate([block, np.repeat(block[-1:], chunk - valid, axis=0)], axis=0)
-        flat = block.reshape(chunk * node, W, F)
-        if model.scaler is not None:
-            flat = model.scaler_transform(flat)
-        yield np.asarray(flat, np.float32), valid
+        with prep:
+            block = windows_array[start : start + chunk]
+            valid = block.shape[0]
+            if valid < chunk:  # pad to the fixed chunk shape
+                block = np.concatenate([block, np.repeat(block[-1:], chunk - valid, axis=0)],
+                                       axis=0)
+            flat = block.reshape(chunk * node, W, F)
+            if model.scaler is not None:
+                flat = model.scaler_transform(flat)
+            flat = np.asarray(flat, np.float32)
+        yield flat, valid
 
 
 def _double_buffered(dispatch, drain, chunks):
@@ -384,6 +389,7 @@ def _double_buffered(dispatch, drain, chunks):
         drain(*pending)
 
 
+@annotate("upgdm.sweep")
 def batched_window_ensemble(model, windows_array: np.ndarray, pred_len: int,
                             chunk_windows: int = 8, max_windows=None,
                             use_gx_directly: bool = False, device=None) -> List[np.ndarray]:
@@ -400,25 +406,30 @@ def batched_window_ensemble(model, windows_array: np.ndarray, pred_len: int,
     out: List[np.ndarray] = []
 
     def dispatch(flat, valid):
-        if use_gx_directly and getattr(model, "has_g", False):
-            # NsDiff-only `_pe` variant: gx replaces the per-step sigma solve
-            outs, _ = model.evaluation_step(flat, use_gx_directly=True)
-        else:
-            outs, _ = model.evaluation_step(flat)
-        return outs, valid
+        with annotate("upgdm.sweep.dispatch"):
+            if use_gx_directly and getattr(model, "has_g", False):
+                # NsDiff-only `_pe` variant: gx replaces the per-step sigma solve
+                outs, _ = model.evaluation_step(flat, use_gx_directly=True)
+            else:
+                outs, _ = model.evaluation_step(flat)
+            return outs, valid
 
     def drain(outs, valid):
-        # C order, as the cache stores it and as JAX hands it back: numpy sums a
-        # strided array in another order, and the MPV of a fresh sweep must
-        # equal the MPV of the same ensembles read back from its cache
-        outs = outs[:, -pred_len:, :, :].contiguous().cpu().numpy()
-        outs = outs.reshape(chunk, node, pred_len, F, outs.shape[-1])
-        out.extend(outs[i] for i in range(valid))
+        with annotate("upgdm.sweep.drain"):
+            # C order, as the cache stores it and as JAX hands it back: numpy sums
+            # a strided array in another order, and the MPV of a fresh sweep must
+            # equal the MPV of the same ensembles read back from its cache
+            outs = outs[:, -pred_len:, :, :].contiguous().cpu().numpy()
+            count("sweep.chunks")
+            count("sweep.d2h_reads")
+            outs = outs.reshape(chunk, node, pred_len, F, outs.shape[-1])
+            out.extend(outs[i] for i in range(valid))
 
     _double_buffered(dispatch, drain, _chunks(model, windows_array, chunk))
     return out
 
 
+@annotate("upgdm.sweep")
 def fast_mpv_sweep(model, windows_array: np.ndarray, pred_len: int,
                    chunk_windows: int = 8, device=None) -> tuple:
     """MPV sweep with the across-sample variance reduced on the device.
@@ -441,17 +452,22 @@ def fast_mpv_sweep(model, windows_array: np.ndarray, pred_len: int,
     mpv_out, mean_out = [], []
 
     def dispatch(flat, valid):
-        outs, _ = model.evaluation_step(flat)
-        return mpv_reduce(outs, std, mean, chunk, node, pred_len), valid
+        with annotate("upgdm.sweep.dispatch"):
+            outs, _ = model.evaluation_step(flat)
+            return mpv_reduce(outs, std, mean, chunk, node, pred_len), valid
 
     def drain(vm, valid):
-        mpv_out.append(vm[0].cpu().numpy()[:valid])
-        mean_out.append(vm[1].cpu().numpy()[:valid])
+        with annotate("upgdm.sweep.drain"):
+            mpv_out.append(vm[0].cpu().numpy()[:valid])
+            mean_out.append(vm[1].cpu().numpy()[:valid])
+            count("sweep.chunks")
+            count("sweep.d2h_reads", 2)
 
     _double_buffered(dispatch, drain, _chunks(model, windows_array, chunk))
     return np.concatenate(mpv_out), np.concatenate(mean_out)
 
 
+@annotate("upgdm.reduce")
 def mpv_reduce(outs, std, mean, chunk, node, pred_len):
     """[chunk*node, O, F, S] ensembles -> (mpv [chunk], pred_mean [chunk])."""
     F = outs.shape[2]

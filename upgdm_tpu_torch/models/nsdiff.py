@@ -42,6 +42,7 @@ from ..ops.kernels.fused_denoiser import (
 from ..ops.schedules import NsDiffSchedule
 from ..parallel import draws
 from ..utils.io import load_checkpoint
+from ..utils.profiling import annotate
 from ..utils.weights import torch_state_from_flax
 from .base import EPS, DiffusionWrapperBase
 from .denoise import NsDiffDenoiser
@@ -160,6 +161,7 @@ class NsDiffModel(DiffusionWrapperBase):
             return self.net["cond_pred_model_g"](batch_x)
         return self._cast("cond_pred_model_g", dtype)(batch_x.to(dtype))
 
+    @annotate("upgdm.backbone")
     @torch.inference_mode()
     def f_and_g(self, batch_x):
         """(y0_hat, gx) [B, pred_len, N] float32; ``fg_sampling_dtype`` casts
@@ -220,6 +222,7 @@ class NsDiffModel(DiffusionWrapperBase):
 
         return model_fn
 
+    @annotate("upgdm.chain")
     @torch.inference_mode()
     def sample_chain(self, y0_hat, gx, generator=None, n_z_samples: Optional[int] = None,
                      use_gx_directly: bool = False, noise=None,

@@ -39,6 +39,7 @@ from ..ops.kernels.fused_denoiser import check_dtypes, step_weights
 from ..ops.kernels.fused_tmdm import fused_tmdm_rows, tmdm_gammas, tmdm_weights
 from ..ops.schedules import card_schedule
 from ..parallel import draws
+from ..utils.profiling import annotate
 from .base import DiffusionWrapperBase
 from .denoise import TMDMDenoiser
 from .embedding import DataEmbedding
@@ -126,6 +127,7 @@ class TMDMModel(DiffusionWrapperBase):
     def denoiser(self) -> TMDMDenoiser:
         return self.net["model"]
 
+    @annotate("upgdm.backbone")
     @torch.inference_mode()
     def cond_fn(self, batch_x):
         """(y_0_hat [B, L+P, N], x_emb [B, W, d]) float32 for batch_x
@@ -173,6 +175,7 @@ class TMDMModel(DiffusionWrapperBase):
 
         return model_fn
 
+    @annotate("upgdm.chain")
     @torch.inference_mode()
     def sample_chain(self, y_0_hat, x_emb, generator=None, n_z_samples: Optional[int] = None,
                      noise=None, use_kernel: Optional[bool] = None):

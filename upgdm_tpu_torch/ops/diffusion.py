@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..parallel import draws
+from ..utils.profiling import annotate
 
 EPS = 10e-8  # the reference's epsilon (NsDiff_model.py:37): 1e-7
 
@@ -197,18 +198,20 @@ def nsdiff_p_sample_loop(
         raise ValueError(f"noise: expected {n_steps} tensors, got {len(noise)}")
     draw = _chain_draw(y_0_hat, generator, noise, members)
 
+    update = annotate("upgdm.chain.update")
     y_T_mean = y_0_hat
     y = torch.sqrt(gx) * draw(0) + y_T_mean
     for i, t in enumerate(range(n_steps - 1, 0, -1)):
         c = nsdiff_gather(sched, t, y)
         eps_theta, sigma_theta = model_fn(y, t)
-        sqrt_abar = torch.sqrt(1.0 - c.one_minus_abar_sqrt_t ** 2)
-        sigma_y0, noise_var = _noise_var(c, gx, sigma_theta, use_gx_directly)
-        y0_reparam = (y - (1.0 - sqrt_abar) * y_T_mean
-                      - eps_theta * torch.sqrt(noise_var)) / sqrt_abar
-        g0, g1, g2 = nsdiff_gammas(c, gx, sigma_y0)
-        y_mean = g0 * y0_reparam + g1 * y + g2 * y_T_mean
-        y = y_mean + torch.sqrt(sigma_theta) * draw(i + 1)
+        with update:
+            sqrt_abar = torch.sqrt(1.0 - c.one_minus_abar_sqrt_t ** 2)
+            sigma_y0, noise_var = _noise_var(c, gx, sigma_theta, use_gx_directly)
+            y0_reparam = (y - (1.0 - sqrt_abar) * y_T_mean
+                          - eps_theta * torch.sqrt(noise_var)) / sqrt_abar
+            g0, g1, g2 = nsdiff_gammas(c, gx, sigma_y0)
+            y_mean = g0 * y0_reparam + g1 * y + g2 * y_T_mean
+            y = y_mean + torch.sqrt(sigma_theta) * draw(i + 1)
 
     # final step t=0 -> y_0 (deterministic reparameterisation)
     c = nsdiff_gather(sched, 0, y)
@@ -284,13 +287,16 @@ def card_p_sample_loop(
     def reparam(y, eps_theta, t):
         return (y - float(shift[t]) * y_T_mean - eps_theta * float(s1m[t])) / float(sqrt_abar[t])
 
+    update = annotate("upgdm.chain.update")
     y_T_mean = y_0_hat
     y = draw(0) + y_T_mean
     for i, t in enumerate(range(n_steps - 1, 0, -1)):
-        y0_reparam = reparam(y, model_fn(y, t), t)
-        y_mean = (float(gamma_0[t]) * y0_reparam + float(gamma_1[t]) * y
-                  + float(gamma_2[t]) * y_T_mean)
-        y = y_mean + float(sqrt_beta_hat[t]) * draw(i + 1)
+        eps_theta = model_fn(y, t)
+        with update:
+            y0_reparam = reparam(y, eps_theta, t)
+            y_mean = (float(gamma_0[t]) * y0_reparam + float(gamma_1[t]) * y
+                      + float(gamma_2[t]) * y_T_mean)
+            y = y_mean + float(sqrt_beta_hat[t]) * draw(i + 1)
     # final step t=0 -> y_0 (deterministic reparameterisation)
     return reparam(y, model_fn(y, 0), 0)
 

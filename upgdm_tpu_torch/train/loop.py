@@ -62,6 +62,7 @@ import torch
 from ..models.factory import diffusion_models
 from ..utils import io as uio
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, count
 from .optimizers import make_lr_schedule, make_optimizer
 
 __all__ = ["run_training", "make_train_step", "deterministic_cudnn"]
@@ -85,23 +86,30 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[st
     group = optimizer.param_groups[0]
     group.setdefault("applied_updates", 0)
 
+    @annotate("upgdm.train.step")
     def step(batch, **kw) -> float:
         if lr_at is not None:
             lr = lr_at(group["applied_updates"])
             for g in optimizer.param_groups:
                 g["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
-        if bf16:
-            kw = {k: v.to(torch.bfloat16) if torch.is_tensor(v) and v.dtype == torch.float32
-                  else v for k, v in kw.items()}
-            loss = model.cast_loss(batch, torch.bfloat16, select=select, train=True, **kw)
-        else:
-            loss = model.loss_fn(batch, select=select, train=True, **kw)
-        loss.backward()
-        value = loss.item()
+        with annotate("upgdm.train.forward"):
+            if bf16:
+                kw = {k: v.to(torch.bfloat16) if torch.is_tensor(v) and v.dtype == torch.float32
+                      else v for k, v in kw.items()}
+                loss = model.cast_loss(batch, torch.bfloat16, select=select, train=True, **kw)
+            else:
+                loss = model.loss_fn(batch, select=select, train=True, **kw)
+        with annotate("upgdm.train.backward"):
+            loss.backward()
+        with annotate("upgdm.train.sync"):
+            value = loss.item()
+        count("train.host_syncs")  # every blocking read of the device in the step
         if math.isfinite(value):
-            optimizer.step()
+            with annotate("upgdm.train.optimizer"):
+                optimizer.step()
             group["applied_updates"] += 1
+        count("train.steps")
         return value
 
     return step
