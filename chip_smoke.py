@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--kernels]
 
-Builds the port's four CUDA kernels from ``upgdm_tpu_torch/csrc/`` (into
+Builds the port's five CUDA kernels from ``upgdm_tpu_torch/csrc/`` (into
 ``build/kernels/``) and fails on a register spill in the tensor-core kernels,
 holds each kernel against its plain PyTorch twin on the card (K1 and K3 over
 ragged row counts, feature widths 1, 2 and 4, edge-case rows and, element by
@@ -11,12 +11,17 @@ element, at the sweeps' own row counts in both matmul types; K2 over the same
 row counts and widths with and without ``use_gx_directly``, noise-free in both
 matmul types and per sample on its own Philox normals, against a chain of K1
 launches, at 100 steps, at two launch shapes and, element by element, at the
-sweep's own row count), drives the NsDiff sampling-MPV sweep at the bench geometry (``bench.py``: Node 30,
+sweep's own row count; the NsDiff chain's posterior update bit for bit
+against its twin and the eager step it replaced, alone, at the sweep's own
+row count and over whole chains of K1 launches, and its time), drives the
+NsDiff sampling-MPV sweep at the bench geometry (``bench.py``: Node 30,
 W/P 100/100, 20 steps, 100 samples, d_model 512, e4/d2) and the TMDM
 sampling-MPV sweep at the model-comparison geometry (Node 30, W/P 100/100,
 label 50, 100 steps, 100 samples, d_model 64, e2/d1) through the port's entry
-points, holds each sweep's bf16 kernel chain to its float32 kernel chain at
-the MPV level, runs the cache-first evaluation runner, and checks the trained
+points, holds the NsDiff float32 kernel chain to a chain with no kernel (the
+plain denoiser and the eager update), holds each sweep's bf16 kernel chain to
+its float32 kernel chain at the MPV level, counts the update's launches (T a
+chain) on every NsDiff path, runs the cache-first evaluation runner, and checks the trained
 SIS model of ``demo_fig1``. Then training: the train step of every NsDiff
 stage at the train-bench geometry (``bench_train.py``: B 64, W/P 100/100,
 d_model 512, e4/d2) and of TMDM at its model-comparison geometry, timed in
@@ -48,7 +53,8 @@ the model-comparison width through ``uncertainty_ews`` (written, a cache hit;
 forwards and Langevin gradients counted), a profiled round at 32 rows with
 its peak memory, the card against the CPU on every forward of a chain, bf16
 against float32 MPV, and its train step. Neither family has a hand-written
-kernel on its path. Then the SLBP analyses at the trained demo model's full
+denoiser kernel on its path (NsDiff_spatial's chain takes the posterior
+update's). Then the SLBP analyses at the trained demo model's full
 width (``demo_artifacts/model`` over the tracked trajectory, 191 windows, K1
 at 160,000 rows and F 2): the sensitivity sweep timed with its 240 K1
 launches and a profiled chunk, the sampling, gx, MPV, direct and raw-variance
@@ -81,8 +87,8 @@ through the arm driver, one figure job through the zoo's figure stage), the
 each cut is printed on a ``reduced`` line. Every phase that fails exits
 non-zero. Progress goes to stdout as JSON lines; the line before the last
 holds the kernel table, the last line is ``{"ok": true, "device": {...}}``.
-``--kernels`` stops after the kernel phases (build, K1, K2, K3 with their
-times): the short loop for work on a kernel; ``--examples`` runs the
+``--kernels`` stops after the kernel phases (build, K1, K2, K3 and the
+chain's update with their times): the short loop for work on a kernel; ``--examples`` runs the
 ``examples`` phase alone after the build; ``--paper-runs N`` runs the
 paper-figure demo whole N times, each in a fresh process with its graphs
 unpinned, and counts the runs that fail (a measurement, no result line).
@@ -670,6 +676,226 @@ def check_chain_kernel(dev, seed=6, act="float32"):
     return err
 
 
+# -- the NsDiff chain's posterior update (csrc/nsdiff_chain_update.cu) ----------------
+# (rows, features, floats the operands sit into their buffers: 16-byte aligned
+# when a multiple of 4, else the kernel takes every row one at a time)
+UPDATE_SHAPES = ((1, 1, 0), (3, 1, 1), (5, 1, 0), (63, 1, 2), (64, 1, 0), (65, 2, 1),
+                 (4097, 1, 3), (65537, 1, 0), (65537, 4, 1))
+
+
+def eager_nsdiff_step(sched_dev, t, y, y_T_mean, gx, eps_theta, sigma_theta, z,
+                      use_gx_directly):
+    """A step of ``nsdiff_p_sample_loop`` as the eager tensor arithmetic it
+    was before the update became one kernel: 0-d gathers of the schedule on
+    the data's device, ~50 launches. ``z=None`` is the final step."""
+    import torch
+
+    from upgdm_tpu_torch.ops.diffusion import nsdiff_gather
+
+    c = nsdiff_gather(sched_dev, t, y)
+    sqrt_abar = torch.sqrt(1.0 - c.one_minus_abar_sqrt_t ** 2)
+    if use_gx_directly:
+        sigma_y0, noise_var = gx, c.betas_bar_t * gx
+    else:
+        a, bt_m1, bb_m1 = c.alpha_t, c.betas_tilde_m_1_t, c.betas_bar_m_1_t
+        lam0 = a * (1.0 - a) * bt_m1
+        lam1 = ((1.0 - a) ** 2 * bt_m1 + a * (1.0 - a) * (bb_m1 - bt_m1)) * gx - sigma_theta * (
+            a * bt_m1 + a * (1.0 - a))
+        lam2 = gx ** 2 * (1.0 - a) ** 2 * (bb_m1 - bt_m1) - sigma_theta * gx * (
+            a * bb_m1 - a * bt_m1 + (1.0 - a) ** 2)
+        disc = torch.clamp(lam1 ** 2 - 4.0 * lam0 * lam2, min=0.0)
+        sigma_y0 = (-lam1 + torch.sqrt(disc)) / (2.0 * lam0)
+        noise_var = (c.betas_bar_t - c.betas_tilde_t) * gx + c.betas_tilde_t * sigma_y0
+    y0_reparam = (y - (1.0 - sqrt_abar) * y_T_mean
+                  - eps_theta * torch.sqrt(noise_var)) / sqrt_abar
+    if z is None:
+        return y0_reparam
+    a = c.alpha_t
+    s1 = (1.0 - a) ** 2 * gx + a * (1.0 - a) * sigma_y0
+    s2 = (c.betas_bar_m_1_t - c.betas_tilde_m_1_t) * gx + c.betas_tilde_m_1_t * sigma_y0
+    sqrt_a, sqrt_abar_prev = torch.sqrt(a), torch.sqrt(c.alphas_cumprod_prev_t)
+    denom = a * s2 + s1
+    g0, g1 = sqrt_abar_prev * s1 / denom, sqrt_a * s2 / denom
+    g2 = ((sqrt_a * (a - 1.0)) * s2 + (1.0 - sqrt_abar_prev) * s1) / denom
+    y_mean = g0 * y0_reparam + g1 * y + g2 * y_T_mean
+    return y_mean + torch.sqrt(sigma_theta) * z
+
+
+def eager_nsdiff_chain(model_fn, y0, gx, sched_dev, generator, use_gx_directly, noise,
+                       members):
+    """``nsdiff_p_sample_loop`` with ``eager_nsdiff_step`` for its update:
+    the same draws in the same order."""
+    import torch
+
+    from upgdm_tpu_torch.ops.diffusion import _chain_draw
+
+    draw = _chain_draw(y0, generator, noise, members)
+    y = torch.sqrt(gx) * draw(0) + y0
+    for i, t in enumerate(range(sched_dev.num_timesteps - 1, 0, -1)):
+        eps, sig = model_fn(y, t)
+        y = eager_nsdiff_step(sched_dev, t, y, y0, gx, eps, sig, draw(i + 1), use_gx_directly)
+    eps, sig = model_fn(y, 0)
+    return eager_nsdiff_step(sched_dev, 0, y, y0, gx, eps, sig, None, use_gx_directly)
+
+
+def same_bits(name, got, want, where):
+    """AssertionError unless got and want hold the same float32 bits (NaN
+    where the other has NaN). Returns the largest absolute difference of
+    the values that are not NaN, as measured."""
+    import torch
+
+    nan = torch.isnan(got)
+    if got.shape != want.shape or not torch.equal(nan, torch.isnan(want)):
+        raise AssertionError(f"{name}: shape or NaN rows differ at {where}")
+    a, b = torch.where(nan, 0.0, got), torch.where(nan, 0.0, want)
+    err = (a - b).abs().max().item()
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"{name}: {(a != b).sum().item()} values differ, max {err} "
+                             f"at {where}")
+    return err
+
+
+# launches of the chain's posterior-update kernel in the windows each path
+# checks (``counted_updates``), by path: the kernel table's row
+UPDATE_BY_PATH = {}
+
+
+def counted_updates(path, what, expected):
+    """The posterior-update kernel's launches since the last ``zero_counts``,
+    added to ``UPDATE_BY_PATH[path]``; fails the phase unless they are
+    ``expected``. A chain of T steps takes T launches (one a step and one for
+    t = 0), so a flat NsDiff chain takes one a K1 launch and NsDiff_spatial's
+    one a denoiser forward."""
+    from upgdm_tpu_torch.ops.kernels.nsdiff_chain_update import nsdiff_chain_update
+
+    n = nsdiff_chain_update.launches
+    require(n == expected, path, f"{what}: the chain's update launched {n} times, "
+                                 f"expected {expected}")
+    if n:
+        UPDATE_BY_PATH[path] = UPDATE_BY_PATH.get(path, 0) + n
+    return n
+
+
+def main_shape_update_err(dev, sched, gen):
+    """The update kernel against the eager step at the main path's 4.8 M
+    rows, where the grid-stride loop takes ~9 passes of the grid: both
+    ``use_gx_directly`` arms, a step and the final one, 16-byte aligned, and
+    three rows more one float into each buffer (the scalar loop). Returns
+    the largest difference measured (AssertionError unless bit for bit)."""
+    import torch
+
+    from upgdm_tpu_torch.ops.diffusion import schedule_on
+    from upgdm_tpu_torch.ops.kernels.nsdiff_chain_update import chain_table, nsdiff_chain_update
+
+    table, sched_dev, err = chain_table(sched, dev), schedule_on(sched, dev), 0.0
+    with torch.no_grad():
+        for M, offset in ((M_MAIN, 0), (M_MAIN + 3, 1)):
+            y, ytm, gx, eps, sig, z = update_operands(M, 1, offset, gen, dev)
+            for direct in (False, True):
+                for t in (7, 0):
+                    zt = None if t == 0 else z
+                    err = max(err, same_bits(
+                        "update vs eager step", nsdiff_chain_update(
+                            y, ytm, gx, eps, sig, zt, table[t], direct),
+                        eager_nsdiff_step(sched_dev, t, y, ytm, gx, eps, sig, zt, direct),
+                        f"M={M} offset={offset} t={t} direct={direct}"))
+            del y, ytm, gx, eps, sig, z
+    return err
+
+
+def update_operands(M, Fdim, offset, gen, dev):
+    """(y, y_T_mean, gx, eps, sigma, z) [M, Fdim] float32, each ``offset``
+    floats into its own buffer, with edge rows first: sigma 50 (the
+    discriminant's clamp), 1e-6, 3 and NaN, gx 1e-6, 1e-3, 2 and 7."""
+    import torch
+
+    def one(uniform):
+        x = torch.empty(M * Fdim + offset, device=dev)[offset:].view(M, Fdim)
+        return x.uniform_(0.05, 1.0, generator=gen) if uniform else x.normal_(generator=gen)
+
+    y, ytm, gx, eps, sig, z = (one(u) for u in (False, False, True, False, True, False))
+    edges = torch.tensor([[50.0, 1e-6, 3.0, float("nan")], [1e-6, 1e-3, 2.0, 7.0]], device=dev)
+    sig[:4, 0] = edges[0, :min(M, 4)]
+    if M > 4:
+        gx[4:8, 0] = edges[1, :min(M - 4, 4)]
+    return y, ytm, gx, eps, sig, z
+
+
+def check_chain_update_kernel(dev, seed=8):
+    """The posterior-update kernel bit for bit against its twin run on the
+    card and against the eager step it replaced: over UPDATE_SHAPES (row
+    counts not a multiple of 4, unaligned operands), both ``use_gx_directly``
+    arms and the final step, on every t of a 20-step linear schedule and on
+    four steps of a 100-step cosine one. Then whole chains of K1 launches
+    through ``nsdiff_p_sample_loop`` (the kernel, T launches a chain) against
+    the same chain with the eager update: drawn from one seed, through a
+    non-contiguous ``noise`` seam, and on strided y0_hat, gx, eps and sigma.
+    Returns the number of cases."""
+    import torch
+
+    from upgdm_tpu_torch.ops.diffusion import nsdiff_p_sample_loop, schedule_on
+    from upgdm_tpu_torch.ops.kernels.fused_denoiser import (
+        denoiser_gammas, fused_denoiser_rows, step_weights,
+    )
+    from upgdm_tpu_torch.ops.kernels.nsdiff_chain_update import (
+        chain_table, nsdiff_chain_update, nsdiff_chain_update_reference,
+    )
+    from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = 0
+    for name, T, steps in (("linear", N_STEPS, range(N_STEPS)), ("cosine", 100, (0, 1, 50, 99))):
+        sched = NsDiffSchedule.create(name, T, 1e-4, 2e-2)
+        table, sched_dev = chain_table(sched, dev), schedule_on(sched, dev)
+        for M, Fdim, offset in UPDATE_SHAPES:
+            y, ytm, gx, eps, sig, z = update_operands(M, Fdim, offset, gen, dev)
+            for direct in (False, True):
+                for t in steps:
+                    zt = None if t == 0 else z
+                    where = f"{name} T={T} t={t} M={M} F={Fdim} offset={offset} direct={direct}"
+                    got = nsdiff_chain_update(y, ytm, gx, eps, sig, zt, table[t], direct)
+                    same_bits("update vs twin", got, nsdiff_chain_update_reference(
+                        y, ytm, gx, eps, sig, zt, table[t], direct), where)
+                    same_bits("update vs eager step", got, eager_nsdiff_step(
+                        sched_dev, t, y, ytm, gx, eps, sig, zt, direct), where)
+                    cases += 1
+    # whole chains through K1 (bf16), 4 members of 16,385 rows
+    den, W, _, sched, _ = chain_setup(1, N_STEPS, dev)
+    members, M = 4, 4 * 16385
+    y0, gx = chain_rows(M, 1, gen, dev)
+    kw = step_weights(W, torch.bfloat16)
+    x = torch.cat([y0, y0, gx], dim=1)
+
+    def model_fn(y, t):
+        x[:, :1] = y
+        return fused_denoiser_rows(x, denoiser_gammas(den, t), kw, matmul_dtype="bfloat16")
+
+    def strided_fn(y, t):  # eps and sigma as strided views (NsDiff_spatial's layouts)
+        eps, sig = model_fn(y, t)
+        return torch.cat([eps, eps], 1)[:, :1], torch.cat([sig, sig], 1)[:, :1]
+
+    strided = [torch.randn(M, 2, generator=gen, device=dev)[:, ::2] for _ in range(N_STEPS)]
+    chains = (("drawn", model_fn, y0, gx, None), ("strided noise", model_fn, y0, gx, strided),
+             ("strided operands", strided_fn, torch.cat([y0, y0], 1)[:, :1],
+              torch.cat([gx, gx], 1)[:, :1], None))
+    for direct in (False, True):
+        for name, fn, y0c, gxc, noise in chains:
+            where = f"chain M={M} direct={direct} {name}"
+            before = nsdiff_chain_update.launches
+            got = nsdiff_p_sample_loop(fn, y0c, gxc, sched, torch.Generator(
+                device=dev).manual_seed(3), direct, noise, members)
+            if nsdiff_chain_update.launches - before != N_STEPS:
+                raise AssertionError(f"{nsdiff_chain_update.launches - before} launches a "
+                                     f"chain, expected {N_STEPS}, at {where}")
+            want = eager_nsdiff_chain(fn, y0c, gxc, schedule_on(sched, dev), torch.Generator(
+                device=dev).manual_seed(3), direct, noise, members)
+            if not torch.isfinite(got).all().item():
+                raise AssertionError(f"non-finite chain at {where}")
+            same_bits("chain vs eager chain", got, want, where)
+            cases += 1
+    return cases
+
+
 # -- training ------------------------------------------------------------------------
 def train_step_ms(model, select, batch, dtype, **step_kw):
     """(median ms of a train step by CUDA events over TRAIN_REPS steps after
@@ -1153,8 +1379,10 @@ def nsdiff_spatial_phase(smi_line, zero_counts, kernel_counts):
     ``hold_out_score`` (pretrain_f -> pretrain_g -> NsDiff_model with
     ``load_pretrain``), the step timed at the grid's batch, the card's loss
     and gradients against the CPU's, and the trained checkpoint swept. No
-    hand-written kernel is on this path (the JAX package's chain drives a
-    UGnet in plain XLA): ``kernel_counts()`` stays zero."""
+    hand-written denoiser kernel is on this path (the JAX package's chain
+    drives a UGnet in plain XLA): ``kernel_counts()`` stays zero, while the
+    chain's posterior update is ``nsdiff_chain_update``'s kernel, as every
+    NsDiff chain's on the card, T launches a window's chain."""
     import numpy as np
     import torch
 
@@ -1185,6 +1413,7 @@ def nsdiff_spatial_phase(smi_line, zero_counts, kernel_counts):
         t_sweep, ens = host_s(lambda: run_diffstg_evaluation_cache(
             model, wins, PRED_LEN, graph, tmp / "sweep.pt", device="cuda"))
         n_fwd, launched = forwards.n, kernel_counts()
+        counted_updates("nsdiff_spatial", "the sweep", STEPS * STG_WINDOWS)
         mpv = np.asarray(summarize_pred_future_list(ens, model=model)[1])
         hist = np.asarray(model.scaler_transform(wins[0]), np.float32)
         profiled = idle_share(lambda: model.evaluation_step({"x": hist, "adj": graph.adj}))
@@ -1606,6 +1835,7 @@ def slbp_phase(smi_line, zero_counts, kernel_counts, bound):
         zero_counts()
         t, r = host_s(fn)
         launches[name] = kernel_counts()
+        counted_updates("slbp", name, launches[name][0])
         out[f"{name}_s"] = t
         return r
 
@@ -1815,6 +2045,7 @@ def figures_phase(smi_line, zero_counts, kernel_counts):
         seconds[name], r = host_s(fn)
         k1, k2, k3 = kernel_counts()
         require(k2 == 0 and k3 == 0, "figures", f"{name}: K2/K3 launched {k2}/{k3} times")
+        counted_updates("figures", name, k1)
         launches[name] = k1
         return r
 
@@ -2014,6 +2245,7 @@ def datagen_phase(smi_line, zero_counts, kernel_counts, bound):
         zero_counts()
         t, r = host_s(fn)
         launches[name] = kernel_counts() + (sde_scan.launches,)
+        counted_updates("datagen", name, launches[name][0])
         out[f"{name}_s"] = t
         return r
 
@@ -2477,6 +2709,7 @@ def real_data_phase(smi_line, zero_counts, kernel_counts):
                                           "windows": len(wins)}
 
     k1, k2, k3 = kernel_counts()
+    counted_updates("real_data", "the phase", 0)
     require((k1, k2, k3, sde_scan.launches) == (0, 0, 0, 0), "real_data",
             f"kernel launches K1-K4 {(k1, k2, k3, sde_scan.launches)}: none is on this path")
     stats = device_memory_stats() or {}
@@ -2621,6 +2854,7 @@ def multi_gpu_phase(smi_line, zero_counts, kernel_counts):
                 zero_counts()
                 secs, out = host_s(sweeps[kind])
                 runs[kind].append((secs, out, kernel_counts()[0]))
+                counted_updates("multi_gpu", f"the {kind} sweep", runs[kind][-1][2])
         k1_main = runs["sharded"][-1][2]
         mpv_b = runs["fast"][0][1][0]
         for kind, rs in runs.items():
@@ -2845,7 +3079,8 @@ def examples_phase(smi_line, zero_counts, counts):
     window, the corpus statistics, ``summarize`` and the fig3 job through the
     zoo's figure stage (a subprocess); (d) the 100-node demo
     and the paper-figure demo at cut depth. ``counts()`` gives the (K1, K2,
-    K3, K4) launches. Returns the launches of K1, K3 and K4 in the phase."""
+    K3, K4, update) launches; every NsDiff chain here takes T update
+    launches (``counted_updates``). Returns the launches of K1, K3 and K4 in the phase."""
     import random
 
     import numpy as np
@@ -2860,7 +3095,7 @@ def examples_phase(smi_line, zero_counts, counts):
     from upgdm_tpu_torch.utils.io import load_pt
 
     t_phase = time.perf_counter()
-    total = np.zeros(4, np.int64)
+    total = np.zeros(5, np.int64)
     seconds, launches = {}, {}
     reduced = []
 
@@ -2876,6 +3111,11 @@ def examples_phase(smi_line, zero_counts, counts):
         seconds[name], r = host_s(fn)
         launches[name] = tuple(int(c) for c in counts())
         total[:] += launches[name]
+        # one update launch a chain step: a K1 launch on the flat NsDiff
+        # paths; the 100-node demo's NsDiff_spatial chains (its 20 steps a
+        # scanned window) are the one chain here with no K1
+        spatial = 20 * r["NsDiff_spatial"]["n_scan_windows"] if name == "n100_scale_demo" else 0
+        counted_updates("examples", name, launches[name][0] + spatial)
         return r
 
     cuda = ["--device", "cuda"]
@@ -3032,7 +3272,8 @@ def examples_phase(smi_line, zero_counts, counts):
                 f"n100/paper: {n100}, launches {launches}")
     emit(phase="examples", card=smi_line, seconds=time.perf_counter() - t_phase,
          reduced=reduced, launches={"K1": int(total[0]), "K2": int(total[1]),
-                                    "K3": int(total[2]), "K4": int(total[3])})
+                                    "K3": int(total[2]), "K4": int(total[3]),
+                                    "update": int(total[4])})
     require(total[1] == 0, "examples", f"K2 launched {total[1]} times: not on these paths")
     return int(total[0]), int(total[2]), int(total[3])
 
@@ -3074,7 +3315,7 @@ def new_kernel_spills(build_log):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     ap.add_argument("--kernels", action="store_true",
-                    help="stop after the kernel phases (build, K1, K2, K3)")
+                    help="stop after the kernel phases (build, K1, K2, K3, the update)")
     ap.add_argument("--examples", action="store_true",
                     help="after the build, run the phase `examples` alone")
     ap.add_argument("--paper-runs", type=int, default=0, metavar="N",
@@ -3108,7 +3349,11 @@ def main(argv=None):
         denoiser_gammas, denoiser_weights, fused_denoiser_rows, fused_denoiser_rows_reference,
         step_weights,
     )
+    from upgdm_tpu_torch.ops.diffusion import schedule_on
     from upgdm_tpu_torch.ops.kernels.fused_tmdm import fused_tmdm_rows, tmdm_gammas, tmdm_weights
+    from upgdm_tpu_torch.ops.kernels.nsdiff_chain_update import (
+        chain_table, chain_update_bytes, nsdiff_chain_update,
+    )
     from upgdm_tpu_torch.ops.kernels.sde_scan import sde_scan
     from upgdm_tpu_torch.ops.kernels.roofline import bound_ms, k1_work, k2_work, k3_work
     from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
@@ -3152,10 +3397,11 @@ def main(argv=None):
         fused_chain_rows.launches = fused_chain_rows.launches_act_bf16 = 0
         fused_tmdm_rows.launches = 0
         sde_scan.launches = 0
+        nsdiff_chain_update.launches = 0
 
     def all_counts():
         return (fused_denoiser_rows.launches, fused_chain_rows.launches,
-                fused_tmdm_rows.launches, sde_scan.launches)
+                fused_tmdm_rows.launches, sde_scan.launches, nsdiff_chain_update.launches)
 
     if args.paper_runs:  # a measurement, not the smoke: no result line
         paper_runs(smi_line, args.paper_runs)
@@ -3365,8 +3611,31 @@ def main(argv=None):
          series_rtol=SERIES_RTOL, rows=M_TMDM, ms=k3_ms, plain_ms=k3_plain_ms,
          bound_ms={k: v[0] for k, v in k3_bound.items()},
          bound_by={k: v[1] for k, v in k3_bound.items()})
+
+    # -- 5b. the NsDiff chain's posterior update: bit for bit against its twin
+    # and the eager step it replaced, at the main path's rows too, then its
+    # time there
+    try:
+        upd_cases = check_chain_update_kernel(dev)
+        upd_err = main_shape_update_err(dev, sched, gen)
+    except AssertionError as exc:
+        fail("chain_update", str(exc))
+    with torch.no_grad():
+        ops = update_operands(M_MAIN, 1, 0, gen, dev)
+        upd_tab, upd_sched = chain_table(sched, dev), schedule_on(sched, dev)
+        upd_ms = {"step": cuda_ms(lambda: nsdiff_chain_update(*ops, upd_tab[7])),
+                  "final": cuda_ms(lambda: nsdiff_chain_update(*ops[:5], None, upd_tab[0]))}
+        eager_ms = {"step": cuda_ms(lambda: eager_nsdiff_step(upd_sched, 7, *ops, False)),
+                    "final": cuda_ms(lambda: eager_nsdiff_step(upd_sched, 0, *ops[:5], None,
+                                                               False))}
+        del ops
+    upd_bound = {k: bound_ms(0.0, chain_update_bytes(M_MAIN, k == "final"), 0.0, "float32",
+                             sm_clock_hz)[0] for k in upd_ms}
+    emit(phase="chain_update", card=smi_line, cases=upd_cases, rows=M_MAIN,
+         max_abs_err=upd_err, ms=upd_ms, eager_ms=eager_ms, bound_ms=upd_bound, bound_by="bytes",
+         roofline_pct={k: 100.0 * upd_bound[k] / upd_ms[k] for k in upd_ms})
     if args.kernels:
-        emit(stopped_after="k3")
+        emit(stopped_after="chain_update")
         return
 
     def chunk_mpv(ens):
@@ -3385,6 +3654,7 @@ def main(argv=None):
     k1_launches = fused_denoiser_rows.launches
     require(k1_launches == STEPS * n_chunks, "main",
             f"K1 launched {k1_launches} times, expected {STEPS * n_chunks}")
+    upd_main = counted_updates("nsdiff_main", "the sweep", k1_launches)
     require(mpv.shape == (N_WINDOWS,) and np.isfinite(mpv).all() and (mpv > 0).all()
             and np.isfinite(pmean).all(), "main", f"bad MPV {mpv[:4]}")
     x0 = torch.as_tensor(model.scaler_transform(wins[:CHUNK].reshape(-1, WINDOWS, 1)),
@@ -3396,15 +3666,28 @@ def main(argv=None):
     t_red, (mpv_k1, _) = host_s(lambda: mpv_reduce(ens, std, 0 * std, CHUNK, NODE, PRED_LEN))
     emit(phase="main", card=smi_line, windows=N_WINDOWS, chunk=CHUNK, seconds=elapsed,
          windows_per_hr=N_WINDOWS / elapsed * 3600.0, k1_launches=k1_launches,
+         update_launches=upd_main,
          k1_matmul_dtype=mm_main, split_s={"f_g": t_fg, "chain": t_chain, "reduce": t_red},
          mpv_first=mpv[:4].tolist())
-    # the same chunk's chain through K1 and through the plain denoiser, float32,
-    # same generator seed (noise is drawn outside the kernel)
+    # the same chunk's chain through K1 and the update kernel, and through the
+    # plain denoiser and the eager update, float32, same generator seed (noise
+    # is drawn outside the kernels)
     model.net_param["sampling_dtype"] = "float32"
+    zero_counts()
     a = model.sample_chain(y0h, gxh, torch.Generator(device=dev).manual_seed(9), N_Z,
                            use_kernel=True)
-    b = model.sample_chain(y0h, gxh, torch.Generator(device=dev).manual_seed(9), N_Z,
-                           use_kernel=False)
+    counted_updates("main_vs_plain", "the K1 chain", fused_denoiser_rows.launches)
+    with torch.inference_mode():
+        rows = lambda v: v[None].expand(N_Z, *v.shape).reshape(-1, *v.shape[1:]).contiguous()
+        y0r, gxr = rows(y0h), rows(gxh)
+        zero_counts()
+        b = eager_nsdiff_chain(model.denoiser_fn(y0r, gxr, use_kernel=False), y0r, gxr,
+                               schedule_on(model.sched, dev),
+                               torch.Generator(device=dev).manual_seed(9), False, None, N_Z)
+        b = b.reshape(N_Z, *y0h.shape).permute(1, 2, 3, 0)
+        require(fused_denoiser_rows.launches == 0, "main_vs_plain", "K1 in the plain chain")
+        counted_updates("main_vs_plain", "the plain chain", 0)
+        del y0r, gxr
     model.net_param["sampling_dtype"] = mm_main
     # bar: float32 on both sides with sums in another order, carried through
     # 20 reverse steps (the CPU test holds the plain path to JAX at the same)
@@ -3572,6 +3855,7 @@ def main(argv=None):
             t, r = host_s(lambda: uncertainty_ews(
                 model_save_file=SIS_MODEL, data_file=SIS_DATA, dynamic_type="SIS",
                 cache_path=Path(tmp, sub), device="cuda", **kw))
+            counted_updates("facade", sub, fused_denoiser_rows.launches)
             return t, r, (fused_denoiser_rows.launches, fused_denoiser_rows.launches_act_bf16)
 
         facade("warm", cache_mode="none")
@@ -3723,6 +4007,7 @@ def main(argv=None):
         t_sweep, (demo_mpv, _) = host_s(lambda: fast_mpv_sweep(
             trained, slbp_w, cfg["dataset"]["pred_len"], chunk_windows=4))
         demo_k1 = fused_denoiser_rows.launches
+        counted_updates("train_then_sweep", "the sweep", demo_k1)
         n_steps = trained.diffusion_steps * -(-len(slbp_w) // 4)
         emit(phase="train_then_sweep", card=smi_line, windows=len(slbp_w), seconds=t_sweep,
              mpv=demo_mpv.tolist(), k1_launches=demo_k1)
@@ -3796,11 +4081,19 @@ def main(argv=None):
                  "upgdm_tpu/ops/pallas/fused_denoiser.py:250", sum(k3_by_path.values()),
                  k3_err[mm_main], k3_ms, k3_plain_ms, k3_bound)
     k3_row["launches_by_path"] = k3_by_path
+    upd_row = {"name": "nsdiff_chain_update", "route": "cuda",
+               "source": "upgdm_tpu_torch/csrc/nsdiff_chain_update.cu",
+               "replaces": "upgdm_tpu/ops/diffusion.py::nsdiff_p_sample_loop (XLA-fused jnp)",
+               "launches": sum(UPDATE_BY_PATH.values()),
+               "launches_by_path": dict(UPDATE_BY_PATH), "max_abs_err": upd_err,
+               "ms": upd_ms["step"], "plain_ms": eager_ms["step"],
+               "bound_ms": upd_bound["step"], "bound_by": "bytes", "library_ms": None}
     print(json.dumps({"kernels": [
         k1_row,
         k2_row,
         k3_row,
         k4_row,
+        upd_row,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -24,6 +24,9 @@ from upgdm_tpu_torch.models.denoise import NsDiffDenoiser
 from upgdm_tpu_torch.models.ns_transformer import NSTransformer, _act, _series_stats
 from upgdm_tpu_torch.models.sigma_estimation import SigmaEstimation
 from upgdm_tpu_torch.ops import diffusion as D
+from upgdm_tpu_torch.ops.kernels.nsdiff_chain_update import (
+    chain_table, posterior_gammas, sigma_y0_hat, step_scalars,
+)
 from upgdm_tpu_torch.ops.rolling import wv_sigma_trailing
 from upgdm_tpu_torch.ops.schedules import NsDiffSchedule
 from upgdm_tpu_torch.utils.weights import flax_flat_from_torch, torch_state_from_flax
@@ -112,20 +115,21 @@ def test_nsdiff_denoiser(F_, batched_t):
 
 @pytest.mark.parametrize("t", [1, 10, 19])
 def test_reverse_step_coefficients(t):
-    """gammas and the sigma_y0 quadratic at rtol 2e-4 (2e-3 for gamma_2,
-    a difference of nearly equal terms)."""
+    """The chain update's gammas and sigma_y0 quadratic, on step t's row of
+    its coefficient table, at rtol 2e-4 (2e-3 for gamma_2, a difference of
+    nearly equal terms)."""
     sched_j = JSchedule.create("linear", 20, 1e-4, 2e-2)
     sched = NsDiffSchedule.create("linear", 20, 1e-4, 2e-2)
     rng = np.random.default_rng(4)
     gx = rng.uniform(0.05, 1.0, size=(6, 10, 1)).astype(np.float32)
     sig = rng.uniform(0.01, 0.5, size=(6, 10, 1)).astype(np.float32)
     cj = JD.nsdiff_gather(sched_j, jnp.asarray(t), jnp.asarray(gx))
-    c = D.nsdiff_gather(sched, t, _t(gx))
     sy_w = np.asarray(JD._nsdiff_sigma_y0_hat(cj, jnp.asarray(gx), jnp.asarray(sig)))
-    sy = D._nsdiff_sigma_y0_hat(c, _t(gx), _t(sig)).numpy()
+    k = step_scalars(chain_table(sched, "cpu")[t], "cpu")
+    sy = sigma_y0_hat(k, _t(gx), _t(sig)).numpy()
     np.testing.assert_allclose(sy, sy_w, rtol=2e-4)
     want = JD.nsdiff_gammas(cj, jnp.asarray(gx), jnp.asarray(sy_w))
-    got = D.nsdiff_gammas(c, _t(gx), _t(sy_w))
+    got = posterior_gammas(k, _t(gx), _t(sy_w))
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-3 if i == 2 else 2e-4)
 

@@ -241,7 +241,7 @@ class NsDiffModel(DiffusionWrapperBase):
                      for z in noise]
         samples = D.nsdiff_p_sample_loop(
             self.denoiser_fn(y0_rows, gx_rows, use_kernel), y0_rows, gx_rows,
-            self._sched_dev, generator=generator if generator is not None else self.generator,
+            self.sched, generator=generator if generator is not None else self.generator,
             use_gx_directly=use_gx_directly, noise=noise, members=S,
         )
         return samples.reshape(S, B, O, N).permute(1, 2, 3, 0)  # [B, O, N, S]

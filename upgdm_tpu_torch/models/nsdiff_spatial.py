@@ -259,7 +259,7 @@ class NsDiffSpatialModel(NsDiffModel):
             noise = [torch.as_tensor(z, dtype=torch.float32, device=self.device).reshape(shape)
                      for z in noise]
         samples = D.nsdiff_p_sample_loop(
-            model_fn, y0_rows, gx_rows, self._sched_dev,
+            model_fn, y0_rows, gx_rows, self.sched,
             generator=generator if generator is not None else self.generator,
             use_gx_directly=use_gx_directly, noise=noise)
         return samples.reshape(S, *y0_hat.shape).permute(1, 2, 3, 4, 0)

@@ -24,6 +24,7 @@ import torch
 
 from ..parallel import draws
 from ..utils.profiling import annotate
+from .kernels.nsdiff_chain_update import chain_table, nsdiff_chain_update
 
 EPS = 10e-8  # the reference's epsilon (NsDiff_model.py:37): 1e-7
 
@@ -31,7 +32,6 @@ __all__ = [
     "EPS",
     "NsDiffCoeffs",
     "nsdiff_gather",
-    "nsdiff_gammas",
     "nsdiff_forward_noise",
     "nsdiff_sigma_tilde",
     "nsdiff_q_sample",
@@ -124,34 +124,6 @@ def nsdiff_q_sample(y, y_0_hat, sched, t, noise):
     return sqrt_abar * y + (1.0 - sqrt_abar) * y_0_hat + noise
 
 
-def nsdiff_gammas(c: NsDiffCoeffs, gx, y_sigma):
-    """Posterior mean coefficients gamma_0/1/2 (nsdiff_utils.py:80-92)."""
-    s1, s2 = _nsdiff_sigma12(c, gx, y_sigma)
-    sqrt_a = torch.sqrt(c.alpha_t)
-    sqrt_abar_prev = torch.sqrt(c.alphas_cumprod_prev_t)
-    denom = c.alpha_t * s2 + s1
-    gamma_0 = sqrt_abar_prev * s1 / denom
-    gamma_1 = sqrt_a * s2 / denom
-    gamma_2 = ((sqrt_a * (c.alpha_t - 1.0)) * s2 + (1.0 - sqrt_abar_prev) * s1) / denom
-    return gamma_0, gamma_1, gamma_2
-
-
-def _nsdiff_sigma_y0_hat(c: NsDiffCoeffs, gx, sigma_theta):
-    """Per-step quadratic solve for sigma_{Y0} (nsdiff_utils.py:143-146)."""
-    a = c.alpha_t
-    bt_m1 = c.betas_tilde_m_1_t
-    bb_m1 = c.betas_bar_m_1_t
-    lam0 = a * (1.0 - a) * bt_m1
-    lam1 = ((1.0 - a) ** 2 * bt_m1 + a * (1.0 - a) * (bb_m1 - bt_m1)) * gx - sigma_theta * (
-        a * bt_m1 + a * (1.0 - a)
-    )
-    lam2 = gx ** 2 * (1.0 - a) ** 2 * (bb_m1 - bt_m1) - sigma_theta * gx * (
-        a * bb_m1 - a * bt_m1 + (1.0 - a) ** 2
-    )
-    disc = torch.clamp(lam1 ** 2 - 4.0 * lam0 * lam2, min=0.0)
-    return (-lam1 + torch.sqrt(disc)) / (2.0 * lam0)
-
-
 def _chain_draw(like: torch.Tensor, generator, noise, members: int):
     """``draw(i)`` of a reverse chain over rows ``like``: ``noise[i]`` when
     given, else normals shaped like the rows. The rows are ``members``
@@ -161,18 +133,11 @@ def _chain_draw(like: torch.Tensor, generator, noise, members: int):
 
     def draw(i):
         if noise is not None:
-            return torch.as_tensor(noise[i], dtype=like.dtype, device=like.device)
+            return torch.as_tensor(noise[i], dtype=like.dtype, device=like.device).contiguous()
         return draws.randn(shape, generator, dtype=like.dtype, device=like.device,
                            batch_axis=1).reshape(like.shape)
 
     return draw
-
-
-def _noise_var(c, gx, sigma_theta, use_gx_directly):
-    if use_gx_directly:
-        return gx, c.betas_bar_t * gx
-    sigma_y0 = _nsdiff_sigma_y0_hat(c, gx, sigma_theta)
-    return sigma_y0, (c.betas_bar_t - c.betas_tilde_t) * gx + c.betas_tilde_t * sigma_y0
 
 
 def nsdiff_p_sample_loop(
@@ -192,33 +157,34 @@ def nsdiff_p_sample_loop(
     (the ``_pe`` variant). ``noise``, when given, holds T tensors shaped like
     y_0_hat: z_T, then z for t = T-1 .. 1. The rows are ``members``
     sample-major copies of the batch (``_chain_draw``).
+
+    Each step's posterior update is one ``nsdiff_chain_update`` (a kernel
+    launch on the card, its plain twin on the CPU) on the step's row of
+    ``chain_table``: float32 host arithmetic on the schedule, taken once for
+    the chain, so no step gathers a coefficient on the device. A schedule of
+    tensors (``schedule_on``) is read back once for that. The kernel reads
+    flat rows, so strided operands (NsDiff_spatial's) are made contiguous.
     """
     n_steps = sched.num_timesteps
     if noise is not None and len(noise) != n_steps:
         raise ValueError(f"noise: expected {n_steps} tensors, got {len(noise)}")
     draw = _chain_draw(y_0_hat, generator, noise, members)
+    table = chain_table(sched, y_0_hat.device)
 
     update = annotate("upgdm.chain.update")
-    y_T_mean = y_0_hat
+    y_T_mean, gx = y_0_hat.contiguous(), gx.contiguous()
     y = torch.sqrt(gx) * draw(0) + y_T_mean
     for i, t in enumerate(range(n_steps - 1, 0, -1)):
-        c = nsdiff_gather(sched, t, y)
         eps_theta, sigma_theta = model_fn(y, t)
         with update:
-            sqrt_abar = torch.sqrt(1.0 - c.one_minus_abar_sqrt_t ** 2)
-            sigma_y0, noise_var = _noise_var(c, gx, sigma_theta, use_gx_directly)
-            y0_reparam = (y - (1.0 - sqrt_abar) * y_T_mean
-                          - eps_theta * torch.sqrt(noise_var)) / sqrt_abar
-            g0, g1, g2 = nsdiff_gammas(c, gx, sigma_y0)
-            y_mean = g0 * y0_reparam + g1 * y + g2 * y_T_mean
-            y = y_mean + torch.sqrt(sigma_theta) * draw(i + 1)
+            y = nsdiff_chain_update(y, y_T_mean, gx, eps_theta.contiguous(),
+                                    sigma_theta.contiguous(), draw(i + 1), table[t],
+                                    use_gx_directly)
 
     # final step t=0 -> y_0 (deterministic reparameterisation)
-    c = nsdiff_gather(sched, 0, y)
     eps_theta, sigma_theta = model_fn(y, 0)
-    sqrt_abar = torch.sqrt(1.0 - c.one_minus_abar_sqrt_t ** 2)
-    _, noise_var = _noise_var(c, gx, sigma_theta, use_gx_directly)
-    return (y - (1.0 - sqrt_abar) * y_T_mean - eps_theta * torch.sqrt(noise_var)) / sqrt_abar
+    return nsdiff_chain_update(y, y_T_mean, gx, eps_theta.contiguous(),
+                               sigma_theta.contiguous(), None, table[0], use_gx_directly)
 
 
 # ---------------------------------------------------------------------------

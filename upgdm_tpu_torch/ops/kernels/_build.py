@@ -97,6 +97,8 @@ def _declare(lib):
     lib.upgdm_sde_scan.argtypes = [i, i, i, ll, i, p, p, p, p, p, p, i, f32, f32, u64, u32, ll,
                                    p, p, p]
     lib.upgdm_sde_scan.restype = i
+    lib.upgdm_nsdiff_chain_update.argtypes = [ll, p, p, p, p, p, p, p, i, i, i, p, p]
+    lib.upgdm_nsdiff_chain_update.restype = i
     lib.upgdm_error_string.argtypes = [i]
     lib.upgdm_error_string.restype = ctypes.c_char_p
 
