@@ -105,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -927,9 +928,9 @@ def train_step_split(model, select, batch, dtype, reps=3, profiled=2):
     """Where a train step's time goes: host ms of its forward (the loss),
     backward and optimizer step, each ended by a synchronise (medians over
     ``reps`` steps after two), and, by ``torch.profiler`` (device activity
-    only) over ``profiled`` unsynchronised steps, the device's summed kernel
-    time and the kernels a step (None when the profiler sees no device
-    activity)."""
+    only) over ``profiled`` unsynchronised steps of ``make_train_step``
+    after its first, the device's summed kernel time and the kernels a step
+    (None when the profiler sees no device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -959,7 +960,11 @@ def train_step_split(model, select, batch, dtype, reps=3, profiled=2):
         for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
             parts[k].append(v * 1e3)
     out = {k: statistics.median(v[2:]) for k, v in parts.items()}
+    # the last loss holds its autograd graph, whose gradient accumulators a
+    # capture's backward would tie to the default stream
+    del loss
     step = make_train_step(model, opt, select)
+    step(batch)  # the first call warms up and captures the step's graph
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(profiled):
             step(batch)
@@ -968,6 +973,139 @@ def train_step_split(model, select, batch, dtype, reps=3, profiled=2):
                                  / (1e3 * profiled) if kernels else None)
     out["kernels_per_step"] = len(kernels) / profiled if kernels else None
     return out
+
+
+# the train step as one CUDA graph a shape, every family through run_training:
+# an epoch of two full batches (a capture, two replays) and a ragged one (the
+# eager body), against the same run with the step eager. Both runs take the
+# same kernels, so their records agree to the last bits
+GRAPH_B, GRAPH_V = 8, 6
+GRAPH_REL = 1e-5
+GRAPH_COUNTERS = ("train.graph_captures", "train.graph_replays", "train.graph_fallbacks")
+
+
+def graph_cases():
+    """(name, net_param, train_model_select, nodes or None) of each family's
+    loss: every NsDiff stage, bf16 through ``cast_loss``, TMDM, DiffSTG and
+    NsDiff_spatial with ``adj``, DiffusionTS."""
+    return (("NsDiff pretrain_f", TRAIN_PARAM, "pretrain_f", None),
+            ("NsDiff pretrain_g", TRAIN_PARAM, "pretrain_g", None),
+            ("NsDiff_model", TRAIN_PARAM, "NsDiff_model", None),
+            ("NsDiff_model bf16", dict(TRAIN_PARAM, train_dtype="bfloat16"), "NsDiff_model",
+             None),
+            ("TMDM", TMDM_TRAIN_PARAM, None, None),
+            ("TMDM bf16", dict(TMDM_TRAIN_PARAM, train_dtype="bfloat16"), None, None),
+            ("DiffSTG", STG_PARAM, None, GRAPH_V),
+            ("NsDiff_spatial pretrain_f", SP_PARAM, "pretrain_f", GRAPH_V),
+            ("NsDiff_spatial pretrain_g", SP_PARAM, "pretrain_g", GRAPH_V),
+            ("NsDiff_spatial NsDiff_model", SP_PARAM, "NsDiff_model", GRAPH_V),
+            ("DiffusionTS", dict(DTS_PARAM, scaler_type=None), None, None))
+
+
+def graph_counts():
+    from upgdm_tpu_torch.utils import profiling
+
+    c = profiling.counters()
+    return {k[len("train.graph_"):]: c.get(k, 0) for k in GRAPH_COUNTERS}
+
+
+def train_graph_phase(smi_line):
+    """Phase ``train_graph``: each family's loss trained for an epoch through
+    ``run_training`` with the step replayed and with it eager; the replays,
+    captures and fallbacks of each and the records' largest relative gap.
+    Then a loss that reads the host inside, which a graph cannot hold:
+    counted as a fallback, the step goes on eagerly with the eager step's
+    losses, and the next step captures as before."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from upgdm_tpu_torch.models.nsdiff import NsDiffModel
+    from upgdm_tpu_torch.train import loop
+    from upgdm_tpu_torch.train.optimizers import make_optimizer
+    from upgdm_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    ring = np.roll(np.eye(GRAPH_V, dtype=np.float32), 1, axis=1)
+    adj = ring + ring.T
+    opt = dict(optimizer_name="Adam", lr=1e-4, weight_decay=1e-5)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, net, select, nodes in graph_cases():
+            L = net["windows"] + net["pred_len"]
+            shape = (2 * GRAPH_B + 3,) + ((nodes,) if nodes else ()) + (L, 1)
+            data = (1.0 + (rng.normal(size=shape) * 0.05).cumsum(axis=-2)).astype(np.float32)
+            train = dict(train_model_select=select, train_batch_size=GRAPH_B,
+                         val_batch_size=GRAPH_B, train_epochs=1, test_set=True, ckpt=False)
+            runs = {}
+            for route in ("graph", "eager"):
+                profiling.phase_timer().reset()
+                off = (mock.patch.object(loop, "_on_card", lambda o: False) if route == "eager"
+                       else contextlib.nullcontext())
+                with off:
+                    rs = loop.run_training(data, data[:GRAPH_B], train, dict(net), {}, opt,
+                                           Path(tmp) / name / route,
+                                           adj=adj if nodes else None, seed=0, device="cuda")
+                runs[route] = (rs, graph_counts())
+            (rs_g, c_g), (rs_e, c_e) = runs["graph"], runs["eager"]
+            require(rs_g["epoch"] == rs_e["epoch"] == [0], "train_graph",
+                    f"{name}: an epoch did not end (records {rs_g}, {rs_e})")
+            got = np.array(rs_g["train_scores"] + rs_g["val_scores"])
+            want = np.array(rs_e["train_scores"] + rs_e["val_scores"])
+            rel = float(np.max(np.abs(got - want) / np.abs(want)))
+            rows[name] = {"graph": c_g, "eager": c_e, "records_max_rel": rel,
+                          "train_score": rs_g["train_scores"][-1]}
+            require(np.isfinite(got).all(), "train_graph", f"{name}: records {rs_g}")
+            require(c_g == {"captures": 1, "replays": 2, "fallbacks": 0}
+                    and c_e == {"captures": 0, "replays": 0, "fallbacks": 0}, "train_graph",
+                    f"{name}: graph route {c_g}, eager route {c_e}")
+            require(rel <= GRAPH_REL, "train_graph",
+                    f"{name}: replayed records {rel} off the eager ones")
+
+        # a loss that reads the host: the step falls back to eager
+        batches = torch.as_tensor((1.0 + (rng.normal(size=(4, GRAPH_B, WINDOWS + PRED_LEN, 1))
+                                          * 0.05).cumsum(axis=-2)).astype(np.float32),
+                                  device="cuda")
+        losses = {}
+        for route in ("fallback", "eager"):
+            profiling.phase_timer().reset()
+            model = NsDiffModel(TRAIN_PARAM, seed=0, device="cuda")
+            loss_fn = model.loss_fn
+
+            def reads_host(batch, **kw):
+                out = loss_fn(batch, **kw)
+                return out * (1.0 if float(out) > -1.0 else 0.0)
+
+            model.loss_fn = reads_host
+            off = (mock.patch.object(loop, "_on_card", lambda o: False) if route == "eager"
+                   else contextlib.nullcontext())
+            with off:
+                step = loop.make_train_step(model, make_optimizer(
+                    opt, model.net, model.trainable_mask()), None)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                losses[route] = [step(b) for b in batches]
+            losses[route + "_counts"] = graph_counts()
+        # and the next step captures as before
+        profiling.phase_timer().reset()
+        model = NsDiffModel(TRAIN_PARAM, seed=0, device="cuda")
+        step = loop.make_train_step(model, make_optimizer(opt, model.net,
+                                                          model.trainable_mask()), None)
+        losses["after"] = [step(b) for b in batches]
+        losses["after_counts"] = graph_counts()
+        torch.cuda.synchronize()
+        rows["host_read_in_the_loss"] = losses
+        require(losses["fallback_counts"] == {"captures": 0, "replays": 0, "fallbacks": 1}
+                and losses["fallback"] == losses["eager"], "train_graph",
+                f"a loss that reads the host: {losses}")
+        require(losses["after_counts"] == {"captures": 1, "replays": 4, "fallbacks": 0}
+                and np.isfinite(losses["after"]).all(), "train_graph",
+                f"the step after a fallback: {losses}")
+    profiling.phase_timer().reset()
+    emit(phase="train_graph", card=smi_line, seconds=time.perf_counter() - t0, batch=GRAPH_B,
+         bar_rel=GRAPH_REL, **rows)
 
 
 def card_vs_cpu(card_model, cls, net_param, batch, seams):
@@ -3318,6 +3456,8 @@ def main(argv=None):
                     help="stop after the kernel phases (build, K1, K2, K3, the update)")
     ap.add_argument("--examples", action="store_true",
                     help="after the build, run the phase `examples` alone")
+    ap.add_argument("--train-graph", action="store_true",
+                    help="after the build, run the phase `train_graph` alone")
     ap.add_argument("--paper-runs", type=int, default=0, metavar="N",
                     help="after the build, run the paper-figure demo whole N times, each "
                          "in a fresh process with its graphs unpinned, and count failures")
@@ -3405,6 +3545,10 @@ def main(argv=None):
 
     if args.paper_runs:  # a measurement, not the smoke: no result line
         paper_runs(smi_line, args.paper_runs)
+        return
+    if args.train_graph:  # the short loop for work on the train step
+        train_graph_phase(smi_line)
+        print(json.dumps({"ok": True}), flush=True)
         return
     if args.examples:  # the short loop for work on the drivers: no kernel table
         examples_phase(smi_line, zero_counts, all_counts)
@@ -4015,6 +4159,9 @@ def main(argv=None):
                 f"K1 launched {demo_k1} times, expected {n_steps}")
         require(demo_mpv.shape == (len(slbp_w),) and np.isfinite(demo_mpv).all()
                 and (demo_mpv > 0).all(), "train_then_sweep", f"bad MPV {demo_mpv}")
+
+    # -- 13b. the train step as a CUDA graph, every family ----------------------------
+    train_graph_phase(smi_line)
 
     # -- 14-16. DiffSTG: the cache runner, training, the facade ------------------------
     kernel_counts = lambda: (fused_denoiser_rows.launches, fused_chain_rows.launches,

@@ -21,6 +21,7 @@ drew from its keys.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -74,6 +75,12 @@ class DiffSTGModel(DiffusionWrapperBase):
         self.parallel_sampling = p.get("parallel_sampling", 1)
         self.sequential_sampling = p.get("sequential_sampling", 1)
         self.sched = diffstg_schedule(self.diffusion_steps, p.get("diffusion_schedule", "linear"))
+        # the loss's tables on the device, so that a train step reads no host
+        # memory (and a CUDA graph can hold it); alphabar keeps its float64
+        self._sched_dev = dataclasses.replace(
+            self.sched, alphabar=torch.as_tensor(self.sched.alphabar, device=self.device))
+        self._loss_table = torch.as_tensor(self._loss_weight(np.arange(self.sched.T + 1)),
+                                           device=self.device)
         # weights drawn from `seed` without touching the global RNG stream
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -154,16 +161,14 @@ class DiffSTGModel(DiffusionWrapperBase):
         t = torch.as_tensor(t, dtype=torch.long, device=self.device)
         eps = (draws.randn(x0.shape, gen, dtype=x0.dtype, device=self.device)
                if noise is None else torch.as_tensor(noise, dtype=x0.dtype, device=self.device))
-        xt = D.diffstg_q_sample(x0, self.sched, t, eps)
+        xt = D.diffstg_q_sample(x0, self._sched_dev, t, eps)
         eps_pred = self.net["model"](xt, t.to(torch.float32), x_masked, adj,
                                      gen if train else None)
         loss_node = ((eps_pred - eps) ** 2).mean(dim=(2, 3))  # [B, V]
         if self.loss_weight_schedule == "constant":
             w = torch.ones(B, dtype=loss_node.dtype, device=self.device)
         else:
-            table = torch.as_tensor(self._loss_weight(np.arange(self.sched.T + 1)),
-                                    device=self.device)
-            w = table[t]
+            w = self._loss_table[t]
         weighted = loss_node * w[:, None]
         if node_mask is not None:
             node_mask = torch.as_tensor(node_mask, dtype=torch.bool, device=self.device)

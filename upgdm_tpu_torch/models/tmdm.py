@@ -89,6 +89,7 @@ class TMDMModel(DiffusionWrapperBase):
             p.get("beta_start", 1e-4),
             p.get("beta_end", 2e-2),
         )
+        self._sched_dev = D.schedule_on(self.sched, self.device)  # the loss's gathers
 
         x_embed_dim = p.get("CART_input_x_embed_dim", self.d_model)
         # weights drawn from `seed` without touching the global RNG stream
@@ -243,7 +244,7 @@ class TMDMModel(DiffusionWrapperBase):
         noise = (draws.randn(batch_y.shape, gen, device=self.device, dtype=batch_y.dtype)
                  if noise is None
                  else torch.as_tensor(noise, dtype=batch_y.dtype, device=self.device))
-        y_t = D.card_q_sample(batch_y, y_0_hat, self.sched, t, noise)
+        y_t = D.card_q_sample(batch_y, y_0_hat, self._sched_dev, t, noise)
         emb = self.net["enc_embedding"](batch_x, drop)
         output = self.net["model"](emb, y_t, y_0_hat, t)
         return torch.mean((noise - output) ** 2) + self.k_cond * loss_vae_all

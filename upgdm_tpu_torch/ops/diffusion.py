@@ -199,15 +199,13 @@ def _host_f32(arr) -> np.ndarray:
 
 def card_q_sample(y, y_0_hat, sched, t, noise):
     """q(y_t | y_0, x) with the mean shifted toward y0_hat
-    (tmdm_diffusion_utils.py:42-53); t is a scalar or one step per batch row."""
+    (tmdm_diffusion_utils.py:42-53); t is a scalar or one step per batch row.
+    The schedule's arrays may be numpy or tensors on the data's device
+    (``schedule_on``)."""
     t = torch.as_tensor(t, dtype=torch.long, device=y.device)
-
-    def g(arr):
-        c = torch.as_tensor(_host_f32(arr), device=y.device)[t]
-        return c.reshape(c.shape + (1,) * (y.ndim - c.ndim))
-
-    sqrt_abar = g(sched.alphas_bar_sqrt)
-    return sqrt_abar * y + (1.0 - sqrt_abar) * y_0_hat + g(sched.one_minus_alphas_bar_sqrt) * noise
+    sqrt_abar = _gather(sched.alphas_bar_sqrt, t, y)
+    return (sqrt_abar * y + (1.0 - sqrt_abar) * y_0_hat
+            + _gather(sched.one_minus_alphas_bar_sqrt, t, y) * noise)
 
 
 def card_p_sample_loop(

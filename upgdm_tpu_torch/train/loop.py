@@ -17,7 +17,10 @@ train/train_diffusion_timeseries.py:17-211):
   - ``train_trace/record_scores.json`` {epoch[], train_scores[],
     val_scores[]} with the reference's running means n*s/(n+1) + loss/(n+1).
 
-The step runs eagerly with autograd on the model's device. With
+On the CPU the step runs eagerly with autograd. On the card, with
+``make_optimizer``'s Adam, it is one CUDA graph a step: the loss, its
+backward, a finite guard on the device and the fused update, captured at
+the first call and replayed after (``make_train_step``). With
 ``net_param["train_dtype"]="bfloat16"`` (opt-in, as in the JAX package) the
 loss runs on bf16 copies of every float32 parameter and of the batch and is
 cast back to float32 (``cast_loss``, the JAX package's semantics): the
@@ -53,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -78,20 +82,33 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[st
     NaN loss skips the update and leaves the count. Keywords of
     ``step(batch, **kw)`` go to the loss (the ``adj`` of a graph model);
     with bf16 training their float32 tensors are cast too, as the JAX
-    package casts every float32 argument of its loss."""
+    package casts every float32 argument of its loss.
+
+    Where the optimizer keeps its state and the finite guard on the device
+    (``make_optimizer``'s Adam on the card), a non-finite loss turns the
+    update into a no-op there, as the JAX package's ``jnp.where`` over
+    params and state does, and the step runs as one CUDA graph: its first
+    call captures the body (loss, backward, guard, update) for the call's
+    input shapes, and each call with those shapes copies its inputs into
+    the graph's and replays it (``_StepGraph``). Other shapes run the same
+    body eagerly. Any other optimizer steps eagerly after the host has read
+    the loss. At the first call on the card no autograd graph over the
+    model's parameters may still be alive (the loss of an eager step kept
+    by the caller): capture's backward would find their gradient
+    accumulators tied to the default stream, and raise."""
     train_dt = str(model.net_param.get("train_dtype", "float32"))
     if train_dt not in ("float32", "bfloat16", "bf16"):
         raise ValueError(f"train_dtype={train_dt!r}: expected 'float32' or 'bfloat16'")
     bf16 = train_dt != "float32"
     group = optimizer.param_groups[0]
     group.setdefault("applied_updates", 0)
+    guarded = _guards_on_device(optimizer)
 
-    @annotate("upgdm.train.step")
-    def step(batch, **kw) -> float:
-        if lr_at is not None:
-            lr = lr_at(group["applied_updates"])
-            for g in optimizer.param_groups:
-                g["lr"] = lr
+    def body(batch, kw, update=True):
+        """The step's work on the device: the loss and its gradients and,
+        where the optimizer guards on the device, the guarded update.
+        Returns the loss. Looks ``loss_fn``, ``cast_loss`` and ``step`` up
+        through their instances at each call."""
         optimizer.zero_grad(set_to_none=True)
         with annotate("upgdm.train.forward"):
             if bf16:
@@ -102,17 +119,166 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, select: Optional[st
                 loss = model.loss_fn(batch, select=select, train=True, **kw)
         with annotate("upgdm.train.backward"):
             loss.backward()
+        loss = loss.detach()
+        if guarded and update:
+            with annotate("upgdm.train.optimizer"):
+                optimizer.found_inf = torch.isfinite(loss).logical_not().float()
+                optimizer.step()
+        return loss
+
+    graph = _StepGraph(body, model, optimizer) if guarded and _on_card(optimizer) else None
+
+    @annotate("upgdm.train.step")
+    def step(batch, **kw) -> float:
+        if lr_at is not None:
+            lr = lr_at(group["applied_updates"])
+            for g in optimizer.param_groups:
+                if torch.is_tensor(g["lr"]):
+                    g["lr"].fill_(lr)
+                else:
+                    g["lr"] = lr
+        loss = graph(batch, kw) if graph is not None else None
+        if loss is None:
+            loss = body(batch, kw)
         with annotate("upgdm.train.sync"):
             value = loss.item()
         count("train.host_syncs")  # every blocking read of the device in the step
         if math.isfinite(value):
-            with annotate("upgdm.train.optimizer"):
-                optimizer.step()
+            if not guarded:
+                with annotate("upgdm.train.optimizer"):
+                    optimizer.step()
             group["applied_updates"] += 1
         count("train.steps")
         return value
 
     return step
+
+
+def _guards_on_device(optimizer) -> bool:
+    """Whether ``optimizer`` skips its own update on the device when told
+    to (``found_inf``): torch's fused Adam, as ``make_optimizer`` builds it
+    on the card."""
+    return isinstance(optimizer, torch.optim.Adam) and all(
+        g.get("fused") for g in optimizer.param_groups)
+
+
+def _on_card(optimizer) -> bool:
+    """Whether the optimizer's parameters live on a CUDA device, with state
+    that a CUDA graph may capture."""
+    return all(g.get("capturable") and g["params"][0].is_cuda for g in optimizer.param_groups)
+
+
+def _signature(batch, kw):
+    """What a captured graph holds fixed of a call: the shapes, types and
+    devices of its batch and keyword tensors; None where a call cannot be
+    replayed (an input that is not a tensor on the card)."""
+    items = [("", batch)] + sorted(kw.items())
+    if not all(torch.is_tensor(v) and v.is_cuda for _, v in items):
+        return None
+    return tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in items)
+
+
+def _cuda_graph(warm, run, generator):
+    """(replay, out): ``run`` captured as a CUDA graph, with ``generator``'s
+    draws in it replayed from the generator's offset at each replay; or
+    None where the body synchronises with the host, which a graph cannot
+    hold. ``warm()`` runs twice first on a side stream: once for the lazy
+    set-up that capture must not see, once more with every synchronising
+    CUDA call raising. A capture that fails after that check raises (torch's
+    allocator keeps routing the capture's stream to its pool after one)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            warm()
+            holds = True
+        except RuntimeError:
+            holds = False
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.current_stream().wait_stream(side)
+    if not holds:
+        return None
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None and generator.device.type == "cuda":
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        out = run()
+    return graph.replay, out
+
+
+class _StepGraph:
+    """The train step's body as one CUDA graph, captured at the first call
+    for that call's input signature and replayed for each call with it.
+
+    Before capture the warm-up (``_cuda_graph``) runs the loss and its
+    backward with no update: the lazy set-up, cuBLAS and cuDNN workspaces,
+    cached device tables, autograd's own. The optimizer's state is made by a
+    step that its device guard skips, so capture finds moments and step
+    counts in place. The model's generator is put back where the warm-up
+    found it, so the first replay draws what the eager step would. Where
+    the body synchronises with the host (a host read or a pageable copy
+    inside the loss) the step runs eagerly from then on, counted under
+    ``train.graph_fallbacks``."""
+
+    def __init__(self, body, model, optimizer):
+        self.body, self.optimizer = body, optimizer
+        self.generator = getattr(model, "generator", None)
+        self.key = self.replay = self.loss = None
+        self.failed = False  # the body synchronises with the host
+
+    def __call__(self, batch, kw):
+        """The loss (on the device) of the replayed step, or None where the
+        call has to run eagerly."""
+        key = _signature(batch, kw)
+        if key is None:
+            return None
+        if self.key is None and not self.failed:
+            self._capture(key, batch, kw)
+        if key != self.key:
+            return None
+        self.batch.copy_(batch)
+        for k, v in self.kw.items():
+            v.copy_(kw[k])
+        with annotate("upgdm.train.replay"):
+            self.replay()
+        count("train.graph_replays")
+        return self.loss
+
+    def _capture(self, key, batch, kw):
+        opt, gen = self.optimizer, self.generator
+        self.batch = batch.clone()
+        self.kw = {k: v.clone() for k, v in kw.items()}
+        saved = gen.get_state() if gen is not None else None
+        device = self.batch.device
+
+        def warm():
+            self.body(self.batch, self.kw, update=False)
+            opt.found_inf = torch.ones((), device=device)
+            opt.step()  # makes the state; the guard leaves everything as it was
+            if gen is not None:
+                gen.set_state(saved)
+            opt.zero_grad(set_to_none=True)
+
+        for g in opt.param_groups:  # the rate the graph reads, written by the step
+            if not (torch.is_tensor(g["lr"]) and g["lr"].device == device):
+                g["lr"] = torch.tensor(float(g["lr"]), dtype=torch.float32, device=device)
+        captured = _cuda_graph(warm, lambda: self.body(self.batch, self.kw), gen)
+        if captured is None:
+            self.failed = True
+            if gen is not None:
+                gen.set_state(saved)
+            opt.zero_grad(set_to_none=True)
+            count("train.graph_fallbacks")
+            warnings.warn("the train step runs eagerly: its body synchronises with the host, "
+                          "which a CUDA graph cannot hold")
+            return
+        self.replay, self.loss = captured
+        self.key = key
+        count("train.graph_captures")
 
 
 @contextlib.contextmanager

@@ -5,7 +5,10 @@ optimizers/optimizers.py:4-27):
 
   - Adam, with ``weight_decay`` as L2 added to the gradient before the
     moments (``torch.optim.Adam``'s own meaning, optax's
-    ``add_decayed_weights`` before ``adam``); SGD with momentum;
+    ``add_decayed_weights`` before ``adam``); SGD with momentum. On the
+    card Adam is torch's fused kernel with its state on the device
+    (``capturable``): it skips its update on the device when the train step
+    finds the loss non-finite, and a CUDA graph can hold it;
   - only the trainable top-level modules are optimised: the others get
     ``requires_grad=False`` and stay out of the optimizer, which leaves them
     unchanged as optax's ``set_to_zero`` does;
@@ -91,6 +94,11 @@ def make_optimizer(optimizer_param: dict, net: nn.ModuleDict,
     lr = float(optimizer_param["lr"])
     wd = float(optimizer_param.get("weight_decay", 0.0) or 0.0)
     if name == "Adam":
+        if params and params[0].is_cuda:
+            # state, step count, rate and the finite guard on the card, so
+            # that the train step can run as one CUDA graph (train/loop.py)
+            return torch.optim.Adam(params, lr=torch.tensor(lr, device=params[0].device),
+                                    weight_decay=wd, fused=True, capturable=True)
         return torch.optim.Adam(params, lr=lr, weight_decay=wd)
     if name == "SGD":
         momentum = float(optimizer_param.get("momentum", 0.0) or 0.0)

@@ -6,7 +6,8 @@ Counterpart of ``upgdm_tpu/utils/profiling.py``:
     phases with a report table (the JAX package's), the store of the
     program's spans and counters besides;
   - ``annotate``: the program's span, a context manager and a decorator.
-    With no profiler recording it costs one check. Under a profiler (the
+    With no profiler recording it costs one check, and inside the capture
+    of a CUDA graph it records nothing. Under a profiler (the
     benchmark's traced window, or ``trace``) it opens a
     ``torch.profiler.record_function`` range, so the span sits in the
     Chrome trace on the kernels' clock, and adds to the global timer its
@@ -40,6 +41,10 @@ __all__ = ["PhaseTimer", "phase_timer", "trace", "annotate", "count", "counters"
            "device_memory_stats"]
 
 _profiling = torch.autograd._profiler_enabled
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
 
 
 class PhaseTimer:
@@ -143,7 +148,7 @@ class _Span:
         self.name = name
 
     def __enter__(self):
-        if _profiling():
+        if _profiling() and not _capturing():  # a capture runs nothing to time
             _GLOBAL_TIMER._enter(self)
         return self
 
