@@ -11,8 +11,8 @@ states, and the twins then give the kernel's eps bit for bit (measured:
 every eps element of F = 1, 2, 4 at 777 rows equal; sigma within 1.2e-7
 relative, float32 softplus in another library). One subprocess computes the
 references with the flag false; the default-flag kernel is held to the
-twins at a bar derived below. On the card ``chip_smoke.py`` holds the CUDA
-kernels to these twins.
+twins at a bar derived below. On the card
+``test_torch_port_card_kernels.py`` holds the CUDA kernels to these twins.
 """
 import json
 import os
@@ -211,7 +211,7 @@ def _port_chain(mm, act="bfloat16", **kw):
 
 def _chain_weight(gx_max=1.0):
     """sum over t of |d y_0 / d eps_t| of the noise-free chain (the weight
-    ``chip_smoke.py::chain_error_weight`` derives; 0.86 at 20 steps)."""
+    ``test_torch_port_card_kernels.py::chain_error_weight`` derives; 0.86 at 20 steps)."""
     s = JSchedule.create("linear", T)
     a, bt_m1, bb_m1, acp_prev, bb = (np.asarray(v, np.float64) for v in (
         s.alphas, s.betas_tilde_m_1, s.betas_bar_m_1, s.alphas_cumprod_prev, s.betas_bar))

@@ -1,6 +1,6 @@
 """Host side of the tensor-core chain kernel (K2) and its plain twin.
 
-The CUDA kernel runs only on the card (``chip_smoke.py`` holds it to the twin
+The CUDA kernel runs only on the card (``test_torch_port_card_kernels.py`` holds it to the twin
 there). Here, on the CPU: the gate table and weight layout the kernel reads,
 the plain Philox twin of its noise stream, the twin against the TPU kernel in
 Pallas interpret mode over feature widths, ragged row counts, step counts and

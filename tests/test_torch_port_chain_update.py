@@ -5,7 +5,7 @@ The host table must hold, bit for bit, the float32 values the eager code's
 0-d tensors gave; the plain twin (the CPU path) must give the eager step's
 bits, so the port's CPU parity with the JAX package is the same as before.
 The CUDA kernel is held against the same twin on the card by
-``chip_smoke.py`` (``check_chain_update_kernel``).
+``test_torch_port_card_kernels.py`` (``check_chain_update_kernel``).
 """
 import re
 from pathlib import Path

@@ -24,7 +24,6 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from chip_smoke import artifact_names
 from upgdm_tpu_torch.utils.io import load_pt
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -33,6 +32,47 @@ DRIVERS = ("slbp_demo", "fig1_demo", "fig1_arm_driver", "network_stats_demo",
            "real_data_demo", "n100_scale_demo", "paper_figures_demo", "reference_zoo",
            "run_seed_study_round5", "run_fig9_round5", "run_dts_neuronal_round5")
 GX_BAR = 1e-3  # the port's bar on the demo record's g(x) block (test_torch_port_slbp.py)
+
+
+IMAGES = (".png", ".svg", ".pdf")
+
+
+def _ignored(rel, patterns):
+    """Whether a .gitignore's ``patterns`` (negations left out) drop the
+    relative path ``rel``: a pattern with a slash before its end is anchored
+    and matched segment by segment, one ending in a slash names a directory,
+    any other matches a name at any depth."""
+    from fnmatch import fnmatchcase
+
+    parts = rel.split("/")
+    for pat in patterns:
+        is_dir = pat.endswith("/")
+        pat = pat.rstrip("/")
+        segs = pat.lstrip("/").split("/")
+        if "/" in pat:
+            n = len(segs)
+            if (len(parts) > n if is_dir else len(parts) == n) and all(
+                    fnmatchcase(a, b) for a, b in zip(parts, segs)):
+                return True
+        elif any(fnmatchcase(a, pat) for a in (parts[:-1] if is_dir else parts)):
+            return True
+    return False
+
+
+def artifact_names(root, like=None):
+    """The relative paths of the files under ``root`` that are not images,
+    .gitignore files, MPV sidecars (``.mpv.json``: the facade of either
+    package writes one beside each `.pt` cache, which the trees' .gitignore
+    drop) or paths the .gitignore of the tree ``like`` (default ``root``)
+    drops: the names a driver's output tree shares with a tracked tree."""
+    like = Path(like or root)
+    gi = like / ".gitignore"
+    patterns = [ln.strip() for ln in (gi.read_text().splitlines() if gi.exists() else [])
+                if ln.strip() and not ln.startswith(("#", "!"))]
+    root = Path(root)
+    return sorted(r for r in (str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+                  if not r.endswith(IMAGES + (".mpv.json",)) and Path(r).name != ".gitignore"
+                  and not _ignored(r, patterns))
 
 
 def port(name):

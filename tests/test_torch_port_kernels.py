@@ -3,7 +3,7 @@
 On the CPU the wrappers run their plain PyTorch twins; the JAX kernels run
 in Pallas interpret mode, as the JAX package's own tests run them. The CUDA
 kernels themselves are held against the same twins on the card by
-``chip_smoke.py``.
+``test_torch_port_card_kernels.py``.
 """
 import jax
 import jax.numpy as jnp

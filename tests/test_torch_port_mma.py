@@ -1,8 +1,8 @@
 """Host side of the tensor-core step kernels (K1, K3) and their plain twins on
 the inputs the CUDA kernels are judged on.
 
-The CUDA kernels run only on the card (``chip_smoke.py`` holds them to the
-twins there). Here, on the CPU: the host-side weight layout the kernels read, the three-term
+The CUDA kernels run only on the card (``test_torch_port_card_kernels.py`` holds them to
+the twins there). Here, on the CPU: the host-side weight layout the kernels read, the three-term
 bound, and the twins against the TPU kernels in Pallas interpret mode over
 ragged row counts, feature widths and edge-case rows.
 """
@@ -213,7 +213,8 @@ def test_twins_keep_relative_accuracy_far_below_zero(kernel, bias):
     as the product reads them (K1: of the normalised row), so a softplus that
     lost relative accuracy there would show. bf16 arm, rtol 1e-3: a bf16
     rounding of one of 128 terms that falls the other way is 2^-8 / 128 =
-    3e-5. ``chip_smoke.py`` holds the CUDA kernels to the same bar."""
+    3e-5. ``test_torch_port_card_kernels.py`` holds the CUDA kernels to the same
+    bar."""
     n_heads, cols, rows, j_rows = ((2, 3, fused_denoiser_rows, j_k1) if kernel == "k1"
                                    else (1, 2, fused_tmdm_rows, j_k3))
     g, w = _case("below", n_heads, cols, 1, seed=7, bias=bias)

@@ -4,7 +4,7 @@ Weights are drawn by the JAX package and carried into the port through
 ``utils/weights.py``; inputs are made with numpy from a seed. On the CPU the
 K3 wrapper runs its plain twin; the JAX kernel runs in Pallas interpret
 mode. The CUDA kernel itself is held against the same twin on the card by
-``chip_smoke.py``.
+``test_torch_port_card_kernels.py``.
 """
 import dataclasses
 

@@ -7,8 +7,10 @@ body at any other, the warm-up that leaves weights, state and generator as
 it found them, the fallback where capture fails) runs here with a stand-in
 for the CUDA graph that replays by calling the captured body. The device
 guard of the fused Adam runs on CPU tensors. The ``card`` cases hold real
-replays against the eager step on a CUDA device and skip without one; on
-the card (whose machine has no JAX, which ``tests/conftest.py`` imports):
+replays against the eager step on a CUDA device, and every family's loss
+trained for an epoch through ``run_training`` replayed against eager; they
+skip without a card. On the card (whose machine has no JAX, which
+``tests/conftest.py`` imports):
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_train_graph.py -m card
 """
@@ -413,3 +415,66 @@ def test_card_host_read_in_the_loss_falls_back(card, monkeypatch, counters):
     step = make_train_step(model, make_optimizer(ADAM, model.net, model.trainable_mask()), None)
     assert all(np.isfinite(step(b)) for b in batches)
     assert counters()["train.graph_replays"] == 3
+
+
+# every family's loss at the card checks' widths through run_training: an epoch
+# of two full batches (a capture, two replays) and a ragged one (the eager
+# body), against the same run with the step eager. Both runs take the same
+# kernels, so their records agree to the last bits
+GRAPH_B, GRAPH_V, GRAPH_REL = 8, 6, 1e-5
+
+
+def _graph_cases():
+    """(name, net_param, train_model_select, nodes or None) of each family's
+    loss: every NsDiff stage, bf16 through ``cast_loss``, TMDM, DiffSTG and
+    NsDiff_spatial with ``adj``, DiffusionTS."""
+    from card_checks import DTS_PARAM, SP_PARAM, STG_PARAM, TMDM_TRAIN_PARAM, TRAIN_PARAM
+
+    return (("NsDiff pretrain_f", TRAIN_PARAM, "pretrain_f", None),
+            ("NsDiff pretrain_g", TRAIN_PARAM, "pretrain_g", None),
+            ("NsDiff_model", TRAIN_PARAM, "NsDiff_model", None),
+            ("NsDiff_model bf16", dict(TRAIN_PARAM, train_dtype="bfloat16"), "NsDiff_model",
+             None),
+            ("TMDM", TMDM_TRAIN_PARAM, None, None),
+            ("TMDM bf16", dict(TMDM_TRAIN_PARAM, train_dtype="bfloat16"), None, None),
+            ("DiffSTG", STG_PARAM, None, GRAPH_V),
+            ("NsDiff_spatial pretrain_f", SP_PARAM, "pretrain_f", GRAPH_V),
+            ("NsDiff_spatial pretrain_g", SP_PARAM, "pretrain_g", GRAPH_V),
+            ("NsDiff_spatial NsDiff_model", SP_PARAM, "NsDiff_model", GRAPH_V),
+            ("DiffusionTS", dict(DTS_PARAM, scaler_type=None), None, None))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("index", range(11))
+def test_card_every_family_replays_as_eager(card, monkeypatch, counters, tmp_path, index):
+    cases = _graph_cases()
+    name, net, select, nodes = cases[index]
+    rng = np.random.default_rng(7)  # each case's data drawn in the cases' order
+    for _, n, _, v in cases[:index + 1]:
+        shape = (2 * GRAPH_B + 3,) + ((v,) if v else ()) + (n["windows"] + n["pred_len"], 1)
+        data = (1.0 + (rng.normal(size=shape) * 0.05).cumsum(axis=-2)).astype(np.float32)
+    ring = np.roll(np.eye(GRAPH_V, dtype=np.float32), 1, axis=1)
+    train = dict(train_model_select=select, train_batch_size=GRAPH_B, val_batch_size=GRAPH_B,
+                 train_epochs=1, test_set=True, ckpt=False)
+    opt = dict(optimizer_name="Adam", lr=1e-4, weight_decay=1e-5)
+    runs = {}
+    for route in ("graph", "eager"):
+        profiling.phase_timer().reset()
+        with monkeypatch.context() as m:
+            if route == "eager":
+                m.setattr(loop, "_on_card", lambda o: False)
+            rs = run_training(data, data[:GRAPH_B], train, dict(net), {}, opt, tmp_path / route,
+                              adj=ring + ring.T if nodes else None, seed=0, device="cuda")
+        runs[route] = (rs, {k[len("train.graph_"):]: profiling.counters().get(k, 0)
+                            for k in GRAPH_COUNTERS})
+    (rs_g, c_g), (rs_e, c_e) = runs["graph"], runs["eager"]
+    assert rs_g["epoch"] == rs_e["epoch"] == [0], (
+        f"{name}: an epoch did not end (records {rs_g}, {rs_e})")
+    got = np.array(rs_g["train_scores"] + rs_g["val_scores"])
+    want = np.array(rs_e["train_scores"] + rs_e["val_scores"])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    assert np.isfinite(got).all(), f"{name}: records {rs_g}"
+    assert (c_g == {"captures": 1, "replays": 2, "fallbacks": 0}
+            and c_e == {"captures": 0, "replays": 0, "fallbacks": 0}), (
+        f"{name}: graph route {c_g}, eager route {c_e}")
+    assert rel <= GRAPH_REL, f"{name}: replayed records {rel} off the eager ones"
