@@ -1,6 +1,7 @@
-"""The port's five CUDA kernels on the card, each against its plain twin.
+"""The port's six CUDA kernels on the card, each against its plain twin.
 
-The nvcc build with no register spill in the tensor-core kernels; K1 and K3
+The nvcc build with no register spill in the tensor-core kernels and the
+attention kernel; K1 and K3
 over ragged row counts, feature widths 1, 2 and 4, edge-case rows and, element
 by element, at the sweeps' own row counts in both matmul types, with the
 series branch of their softplus; the bf16-activation arms of K1 and K2; K2
@@ -8,7 +9,10 @@ noise-free in both matmul types and per sample on its own Philox normals,
 against a chain of K1 launches, at 100 steps, at two launch shapes and at the
 sweep's row count; the NsDiff chain's posterior update bit for bit against its
 twin and the eager step it replaced, alone, at the sweep's row count and over
-whole chains of K1 launches. K4 is held to its twin in
+whole chains of K1 launches; the de-stationary attention against its twin at
+the sweeps' calls, at longer windows and at every head width it is built
+for, its launches in the f(x) of a sweep chunk and of a W/P 200/200 one and
+none in a train step. K4 is held to its twin in
 ``test_torch_port_card_pipelines.py`` (data generation). Every case skips
 without a CUDA device; on the card (see ``card_checks.py``):
 
@@ -23,9 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from bench import make_windows
 from card_checks import (
-    CHUNK, M_MAIN, M_TMDM, N_Z, NODE, PRED_LEN, STEPS, T_STEPS, TOL, card,  # noqa: F401
-    eager_nsdiff_chain, eager_nsdiff_step,
+    CHUNK, M_MAIN, M_TMDM, N_Z, NET_PARAM, NODE, PRED_LEN, STEPS, T_STEPS, TOL, TRAIN_B,  # noqa: F401
+    TRAIN_PARAM, WINDOWS, card, eager_nsdiff_chain, eager_nsdiff_step, train_losses,
 )
 
 # -- the step kernels K1 and K3 against their twins (bar: TOL) ---------------------
@@ -69,6 +74,46 @@ UPDATE_SHAPES = ((1, 1, 0), (3, 1, 1), (5, 1, 0), (63, 1, 2), (64, 1, 0), (65, 2
                  (4097, 1, 3), (65537, 1, 0), (65537, 4, 1))
 UPDATE_SCHEDULES = (("linear", N_STEPS, range(N_STEPS)), ("cosine", 100, (0, 1, 50, 99)))
 UPDATE_CHAINS = ("drawn", "strided noise", "strided operands")
+
+# -- the de-stationary attention (csrc/ds_attention.cu) --------------------------------
+# the sweeps' calls, (name, L, S, causal): the encoder's, the decoder's causal
+# self attention and its cross attention; at nsdiff_sweep's (B, H) for E 64 and
+# tmdm_sweep's for E 16; each with tau and delta, either, or neither
+ATTN_CALLS = (("encoder", 100, 100, False), ("decoder_self", 150, 150, True),
+              ("cross", 150, 100, False))
+ATTN_HEADS = {64: (480, 8), 16: (240, 4)}
+ATTN_VARIANTS = {"tau_delta": (True, True), "tau": (True, False), "delta": (False, True),
+                 "neither": (False, False)}
+# past the sweeps, (E, B, H, name, L, S, causal), with tau and delta: the
+# paper models' E 8 (d_model 16, 2 heads) at W/P 500/200 and 200/200, E 32,
+# the SLBP grid's W/P 200/200 at E 64 (K and V staged beside the score rows),
+# W/P 200/1000 (1,100 keys: K and V read from device memory), the edge of the
+# one-tile path (160 and 161 keys) and the most keys the card takes (one warp
+# a block)
+ATTN_LONG = ((8, 120, 2, "w500_encoder", 500, 500, False),
+             (8, 120, 2, "w200_decoder_self", 300, 300, True),
+             (8, 120, 2, "w200_cross", 300, 200, False),
+             (32, 120, 8, "decoder_self", 150, 150, True),
+             (32, 60, 8, "w200_cross", 300, 200, False),
+             (64, 60, 8, "w200_encoder", 200, 200, False),
+             (64, 60, 8, "w200_decoder_self", 300, 300, True),
+             (64, 60, 8, "w200_cross", 300, 200, False),
+             (64, 8, 8, "p1000_decoder_self", 1100, 1100, True),
+             (64, 8, 8, "p1000_cross", 1100, 200, False),
+             (64, 60, 8, "tile", 160, 160, True),
+             (64, 60, 8, "tile_plus_one", 161, 161, True),
+             (64, 4, 8, "max_keys", 64, None, False))
+# the repo's forward bar (tests/test_pallas_denoiser.py:26-27): float32 on both
+# sides, the products and sums in another order
+ATTN_ATOL = 2e-5
+# f(x) of a sweep chunk with the kernel against the twin, through 6 layers: the
+# JAX package's backbone bar, atol and rtol (tests/test_torch_parity.py:107)
+FX_TOL = 1e-4
+ATTN_CALLS_A_CHUNK = 8  # e4/d2: 4 encoder, 2 x (self + cross)
+# f(x) at bench_cuda/configs/nsdiff_d512_slbp.json's widths (W/P 200/200, two
+# state variables) over a few series: 200, 300 and 300 x 200 keys
+SLBP_PARAM = dict(NET_PARAM, windows=200, pred_len=200, dataset_nf=2)
+SLBP_SERIES = 32
 
 
 class Checks:
@@ -561,13 +606,14 @@ def main_shape_update(checks, dev, sched, gen):
             del y, ytm, gx, eps, sig, z
 
 
-def new_kernel_spills(build_log):
-    """ptxas lines of the tensor-core kernels that report a spill."""
+def new_kernel_spills(build_log, marker="_mma_kernel"):
+    """ptxas lines of the kernels whose entry names hold ``marker`` that
+    report a spill."""
     bad, current = [], ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             current = line
-        elif ("spill" in line and "_mma_kernel" in current
+        elif ("spill" in line and marker in current
               and "0 bytes spill stores, 0 bytes spill loads" not in line):
             bad.append(f"{current.strip()} :: {line.strip()}")
     return bad
@@ -716,6 +762,109 @@ def kernel_checks(card):
     return checks
 
 
+@pytest.fixture(scope="module")
+def attention_checks(card):
+    """The attention kernel against its twin at every call of ATTN_CALLS and
+    variant (a case is ("attention", E, call, variant)) and of ATTN_LONG
+    (("attention", E, call)), each one launch and no fallback, its output
+    contiguous; a query layout 4 bytes off 16 (("attention", "layout"));
+    then f(x) of a sweep chunk at the bench geometry (("attention",
+    "chunk")) and at the SLBP grid's W/P 200/200 (("attention", "w200")), 8
+    launches and no fallback, against the same f(x) on the twin; then two
+    train steps, which never launch it (("attention", "train"))."""
+    from upgdm_tpu_torch.models.attention import DSAttention
+    from upgdm_tpu_torch.models.nsdiff import NsDiffModel
+    from upgdm_tpu_torch.ops.kernels.ds_attention import (
+        ds_attention, ds_attention_reference, max_keys,
+    )
+    from upgdm_tpu_torch.utils.profiling import counters
+
+    dev, checks = card, Checks()
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def tally():
+        c = counters()
+        return c.get("ds_attention.launches", 0), c.get("ds_attention.fallbacks", 0)
+
+    def operands(B, H, E, L, S):
+        """q, k, v as views of [B, *, H E] (AttentionLayer's layout), tau, delta."""
+        q = torch.randn(B, L, H * E, generator=gen, device=dev).view(B, L, H, E)
+        k, v = (torch.randn(B, S, H * E, generator=gen, device=dev).view(B, S, H, E)
+                for _ in range(2))
+        return (q, k, v, torch.rand(B, 1, generator=gen, device=dev) + 0.5,
+                torch.randn(B, S, generator=gen, device=dev))
+
+    def held(q, k, v, t, d, causal, where):
+        before = tally()
+        got = ds_attention(q, k, v, t, d, causal)
+        ran = tuple(a - b for a, b in zip(tally(), before))
+        assert ran == (1, 0), f"(launches, fallbacks) {ran}, expected (1, 0)"
+        assert got.shape == q.shape and got.is_contiguous()
+        err = (got - ds_attention_reference(q, k, v, t, d, causal)).abs().max()
+        assert torch.isfinite(got).all().item() and err.item() <= ATTN_ATOL, (
+            f"off its twin by {err.item()} > {ATTN_ATOL} at {where}")
+
+    def fx_held(param, x):
+        """f(x) with the kernel: ATTN_CALLS_A_CHUNK launches, no fallback,
+        within FX_TOL of f(x) on the twin; g(x) unmoved."""
+        model = NsDiffModel(param, seed=0, device=dev)
+        before = tally()
+        y_k, g_k = model.f_and_g(x)
+        ran = tuple(a - b for a, b in zip(tally(), before))
+        assert ran == (ATTN_CALLS_A_CHUNK, 0), (
+            f"f(x): (launches, fallbacks) {ran}, expected ({ATTN_CALLS_A_CHUNK}, 0)")
+        for m in model.net.modules():
+            if isinstance(m, DSAttention):
+                m.use_kernel = False
+        y_p, g_p = model.f_and_g(x)
+        ran = tuple(a - b for a, b in zip(tally(), before))
+        assert ran == (ATTN_CALLS_A_CHUNK, ATTN_CALLS_A_CHUNK), f"forced twin: {ran}"
+        assert torch.equal(g_k, g_p), "g(x) moved with f(x)'s attention"
+        over = off_by(y_k, y_p, FX_TOL, FX_TOL)
+        assert over <= 0, f"f(x) with the kernel off the twin's by {over} over {FX_TOL}"
+
+    with torch.no_grad():
+        for E, (B, H) in ATTN_HEADS.items():
+            for name, L, S, causal in ATTN_CALLS:
+                q, k, v, tau, delta = operands(B, H, E, L, S)
+                for variant, (use_tau, use_delta) in ATTN_VARIANTS.items():
+                    t, d = tau if use_tau else None, delta if use_delta else None
+                    with checks.case(("attention", E, name, variant)):
+                        held(q, k, v, t, d, causal, f"E {E} {name} {variant}")
+                del q, k, v
+
+        for E, B, H, name, L, S, causal in ATTN_LONG:
+            with checks.case(("attention", E, name)):
+                S = S or max_keys(E)
+                held(*operands(B, H, E, L, S), causal, f"E {E} {name} (L {L}, S {S})")
+
+        with checks.case(("attention", "layout")):
+            q, k, v, tau, delta = operands(60, 8, 64, 100, 100)
+            flat = torch.empty(q.numel() + 1, device=dev)[1:]
+            flat.copy_(q.reshape(-1))
+            held(flat.view(q.shape), k, v, tau, delta, False, "a query layout 4 bytes off 16")
+            del q, k, v, flat
+
+        with checks.case(("attention", "chunk")):
+            fx_held(NET_PARAM, torch.as_tensor(make_windows(CHUNK).reshape(-1, WINDOWS, 1),
+                                               device=dev))
+
+        with checks.case(("attention", "w200")):
+            x = torch.randn(SLBP_SERIES, 200, 2, generator=gen, device=dev) * 0.3 + 1.0
+            fx_held(SLBP_PARAM, x)
+
+    with checks.case(("attention", "train")):
+        rng = np.random.default_rng(3)
+        batch = torch.as_tensor(rng.normal(size=(TRAIN_B, WINDOWS + PRED_LEN, 1)),
+                                dtype=torch.float32, device=dev)
+        before = tally()
+        losses = train_losses(NsDiffModel(TRAIN_PARAM, seed=0, device=dev), None, batch, n=2)
+        assert all(np.isfinite(losses)), f"train losses {losses}"
+        assert tally()[0] == before[0], f"a train step launched it {tally()[0] - before[0]} times"
+        assert tally()[1] > before[1], "a train step's attention counted no fallback"
+    return checks
+
+
 def case_id(key):
     return "-".join(str(p) for p in key).replace(" ", "_")
 
@@ -752,6 +901,32 @@ def test_no_spill_in_the_tensor_core_kernels(card, tmp_path, monkeypatch):
     assert "Compiling entry function" in _build.build_log
     spills = new_kernel_spills(_build.build_log)
     assert not spills, f"register spills in the tensor-core kernels: {spills}"
+
+
+ATTENTION_CASES = ([("attention", E, name, variant) for E in ATTN_HEADS for name, *_ in ATTN_CALLS
+                    for variant in ATTN_VARIANTS]
+                   + [("attention", E, name) for E, _, _, name, *_ in ATTN_LONG]
+                   + [("attention", w) for w in ("layout", "chunk", "w200", "train")])
+
+
+@pytest.mark.card
+def test_no_spill_in_the_attention_kernel(card, tmp_path, monkeypatch):
+    from upgdm_tpu_torch.ops.kernels import _build
+
+    _build.load_library()
+    if not _build.build_log:  # a library built by an earlier process: build again to read ptxas
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        _build.build_library()
+    assert "ds_attention_kernel" in _build.build_log
+    assert "ds_attention_long_kernel" in _build.build_log
+    spills = new_kernel_spills(_build.build_log, "ds_attention")
+    assert not spills, f"register spills in the attention kernel: {spills}"
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("key", ATTENTION_CASES, ids=case_id)
+def test_attention_kernel_against_its_twin(attention_checks, key):
+    attention_checks.held(key)
 
 
 @pytest.mark.card

@@ -7,7 +7,10 @@ mask fills with -1e9. ``FullAttention``/``CrossAttention``
 (diffusionts_transformer.py:123-201) are q @ k^T / sqrt(d), a softmax and
 the projection, returning the output and the head-averaged attention map.
 Dropout on the attention weights is active only when a generator is passed.
-Written as plain matmul + softmax, as the JAX package leaves it to XLA.
+``DSAttention`` runs ``ops/kernels/ds_attention.py``: on the card one
+hand-written kernel a float32 call with no gradient wanted and no dropout
+(sampling); the train step, bf16 backbones and the CPU run its plain twin,
+matmul + softmax as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops.kernels.ds_attention import ds_attention
 from .dropout import Dropout
 from .layers import Linear
 
@@ -25,27 +29,22 @@ _NEG_INF = -1e9
 
 
 class DSAttention(nn.Module):
-    """q, k, v: [B, L, H, E]; tau: [B, 1] or None; delta: [B, S] or None."""
+    """q, k, v: [B, L, H, E]; tau: [B, 1] or None; delta: [B, S] or None.
+
+    ``use_kernel`` False runs the plain twin on the card too (a test seam)."""
 
     def __init__(self, mask_flag: bool = False, attention_dropout: float = 0.05):
         super().__init__()
         self.mask_flag = mask_flag
         self.dropout = Dropout(attention_dropout)
+        self.use_kernel = True
 
     def forward(self, queries, keys, values, tau=None, delta=None, gen=None):
-        B, L, H, E = queries.shape
-        scale = 1.0 / math.sqrt(E)
-        scores = torch.einsum("blhe,bshe->bhls", queries, keys)
-        if tau is not None:
-            scores = scores * tau[:, :, None, None]
-        if delta is not None:
-            scores = scores + delta[:, None, None, :]
-        if self.mask_flag:
-            S = scores.shape[-1]
-            causal = torch.ones(L, S, dtype=torch.bool, device=scores.device).tril()
-            scores = scores.masked_fill(~causal, _NEG_INF)
-        attn = self.dropout(torch.softmax(scale * scores, dim=-1), gen)
-        return torch.einsum("bhls,bshd->blhd", attn, values)
+        drop = None
+        if gen is not None and self.dropout.rate > 0.0:
+            drop = lambda attn: self.dropout(attn, gen)
+        return ds_attention(queries, keys, values, tau, delta, self.mask_flag, drop,
+                            self.use_kernel)
 
 
 class AttentionLayer(nn.Module):

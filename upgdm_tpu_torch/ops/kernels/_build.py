@@ -99,6 +99,10 @@ def _declare(lib):
     lib.upgdm_sde_scan.restype = i
     lib.upgdm_nsdiff_chain_update.argtypes = [ll, p, p, p, p, p, p, p, i, i, i, p, p]
     lib.upgdm_nsdiff_chain_update.restype = i
+    lib.upgdm_ds_attention.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f32, p]
+    lib.upgdm_ds_attention.restype = i
+    lib.upgdm_ds_attention_max_keys.argtypes = [i]
+    lib.upgdm_ds_attention_max_keys.restype = i
     lib.upgdm_error_string.argtypes = [i]
     lib.upgdm_error_string.restype = ctypes.c_char_p
 

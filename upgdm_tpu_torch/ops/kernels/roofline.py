@@ -6,7 +6,7 @@ its shapes imply: the largest of three terms,
 * special-function results (``exp``, ``log``, ``rsqrt``) over the rate of
   the special-function unit: 16 results a clock on each SM.
 
-The peaks are the H100 SXM data sheet's dense rates. ``chip_smoke.py`` and
+The peaks are the H100 SXM data sheet's dense rates. ``kernel_times.py`` and
 ``PERF.md`` state every kernel's time beside this bound. The
 ``act_dtype="bfloat16"`` arms of K1 and K2 issue the same exp, log and rsqrt
 results a row as their float32-activation arms (their extra bf16 roundings
@@ -19,7 +19,7 @@ from typing import Tuple
 
 __all__ = [
     "PEAK_FLOPS", "PEAK_BYTES", "SFU_PER_CLOCK_PER_SM", "SM_COUNT", "bound_ms",
-    "k1_work", "k2_work", "k3_work", "k4_work",
+    "k1_work", "k2_work", "k3_work", "k4_work", "ds_attention_work",
 ]
 
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -100,4 +100,18 @@ def k4_work(n_steps: int, D: int, save_every: int = 1, system: str = "SLBP",
     flops = n_steps * (2.0 * D * D * network + per_node * D)
     nbytes = 4.0 * (n_steps + (n_steps // save_every) * D + 3 * D + network * (D * D + D))
     sfu = n_steps * D * (system == "neuronal")
+    return flops, nbytes, sfu
+
+
+def ds_attention_work(B: int, H: int, L: int, S: int, E: int, causal: bool = False,
+                      tau: bool = True, delta: bool = True) -> Tuple[float, float, float]:
+    """One de-stationary attention call (float32 operations): q [B, L, H, E],
+    k and v [B, S, H, E] and tau [B, 1] and delta [B, S] read, out
+    [B, L, H, E] written. Per (query, key) pair of a head 2 E operations for
+    the score, 2 E for the weighted sum and one exp. A causal call needs the
+    pairs of keys up to the query only, sum over queries of min(l + 1, S)."""
+    pairs = sum(min(l + 1, S) for l in range(L)) if causal else L * S
+    flops = 4.0 * B * H * pairs * E
+    nbytes = 4.0 * (2 * B * L * H * E + 2 * B * S * H * E + tau * B + delta * B * S)
+    sfu = float(B * H * pairs)
     return flops, nbytes, sfu
